@@ -6,28 +6,44 @@
 Needs a CUDA device and nvcc; imports nothing of JAX or gym_copter_tpu.
 Phases, each printed before the last line:
 
-  1. the device: name, count, and nvidia-smi's name and power limit;
-  2. the build of every kernel from ops/csrc: seconds taken, ptxas
-     registers and spills;
-  3. every kernel against its plain PyTorch version on the card, bit for
-     bit: Lander3D at 4096 envs x 2000 steps with deterministic and with
-     random resets, at 1000 envs, then each task family at 128 envs on the
-     scenarios of the CPU tests (tests/torch_cuda_cases.py);
-  4. the main path through the user's entry points: make('Lander3D-v0',
+  1. the device: name, count, nvidia-smi's name and power limit, and its
+     SM clock now and at most;
+  2. the build of every kernel from ops/csrc: seconds taken; per
+     instantiation of the fused-rollout kernel (lanes per env, task kind,
+     termination) ptxas's registers, stack frame and spills; and for the
+     Lander/standard instantiations, counts from the SASS (ops/sass.py):
+     the instructions of the step loop and of its straight path;
+  3. the roundings the plain versions must avoid, and the exhaustive check
+     that the kernel's sincosf gives sinf's and cosf's bits on all 2^32
+     float32 values;
+  4. every kernel against its plain PyTorch version on the card, bit for
+     bit, at every lanes-per-env choice (1, 4): Lander3D at 4096 envs x
+     2000 steps with deterministic and with random resets, at 1000 and 4099
+     envs, then each task family at 128 envs on the scenarios of the CPU
+     tests (tests/torch_cuda_cases.py);
+  5. the main path through the user's entry points: make('Lander3D-v0',
      num_envs=4096) on the card, reset, 3 steps, a 1000-step rollout and a
      10,000-step fused rollout, with every launch count set to 0 just before
-     and read just after; the fused result is held against the plain
-     version on the same inputs;
-  5. times with CUDA events after warm-up: the kernel's device time at the
+     and read just after, and the lanes per env the wrapper chose; the fused
+     result is held against the plain version on the same inputs;
+  6. times with CUDA events after warm-up: the kernel's device time at the
      main path's shape, with the wrapper's host time apart; the kernel at
-     4096 and 65,536 envs (differential, 10k vs 110k steps); the plain
-     eager step; and the kernel's bound;
-  6. one JSON line {"kernels": [...]}.
+     1024, 4096, 8192, 12,288, 16,384 and 65,536 envs at every lanes-per-env
+     choice (differential, 10k vs 110k steps); the SM clock under load; the
+     plain eager step; the kernel's bound and its issue-limited time;
+  7. one JSON line {"kernels": [...]}.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero; without a CUDA device the script exits non-zero at once.
+
+    python3 chip_smoke.py --sweep-only [--tree DIR]
+
+runs only phase 1 and the timing sweep of phase 6, on the package found in
+DIR if given (an unpacked older commit, to compare two versions in one
+run).
 """
 
+import argparse
 import json
 import math
 import subprocess
@@ -53,6 +69,9 @@ BYTES_PER_ENV = (29 + 25) * 4
 
 MAIN_B = 4096
 MAIN_T = 10_000
+SWEEP_B = (1024, 4096, 8192, 12_288, 16_384, 65_536)
+# the instantiation whose SASS is counted: Lander3D's kind and termination
+LANDER_STANDARD = (0, 0)
 # cycles of the spin kernel that keeps the card busy while the host
 # enqueues a timed call: about 5 ms at the H100's 1.98 GHz boost clock
 BUSY_CYCLES = 10_000_000
@@ -62,43 +81,92 @@ def log(*args):
     print(*args, flush=True)
 
 
+def _smi(query):
+    return subprocess.run(
+        ['nvidia-smi', f'--query-gpu={query}', '--format=csv,noheader'],
+        check=True, capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
 def device_phase():
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    clocks = _smi('clocks.sm,clocks.max.sm')
     log(f'[device] {name} x{count}; torch {torch.__version__}, '
-        f'CUDA {torch.version.cuda}')
+        f'CUDA {torch.version.cuda}; '
+        f'{torch.cuda.get_device_properties(0).multi_processor_count} SMs')
+    log(f'[device] SM clock now, max: {clocks}')
+    smi = _smi('name,power.limit')
     log(smi)
-    return name, count, smi
+    return name, count, smi, _mhz(clocks.split(',')[1])
+
+
+def _mhz(field):
+    return float(field.strip().split()[0])
 
 
 def build_phase():
-    from gym_copter_tpu_torch.ops import _build
+    """Builds every kernel; returns the straight-path instructions of one
+    Lander/standard step per lanes-per-env choice."""
+    from gym_copter_tpu_torch.ops import _build, sass
+    from gym_copter_tpu_torch.ops import fused_rollout as fr
 
     t0 = time.perf_counter()
-    _build.build_all()
+    libs = _build.build_all()
     log(f'[build] {len(_build.SOURCES)} kernel source(s) in '
         f'{time.perf_counter() - t0:.1f} s')
-    for name in _build.SOURCES:
-        for line in _build.ptxas_report(name).splitlines():
-            if 'registers' in line or 'spill' in line:
-                log(f'[build] {name}: {line.strip()}')
+    rows, _ = sass.report(libs['fused_rollout'],
+                          _build.ptxas_report('fused_rollout'))
+    by_lanes, straight, spills = {}, {}, []
+    for row in rows:
+        if row['template'] is None:
+            continue
+        lanes, kind, term = row['template']
+        tag = f'{fr._KINDS[kind]}/{fr._TERMINATIONS[term]}'
+        by_lanes.setdefault(lanes, []).append(
+            f'{tag} {row["registers"]} ({row["stack"]}, '
+            f'{row["spill_stores"]}/{row["spill_loads"]})')
+        if row['spill_stores'] or row['spill_loads']:
+            spills.append(f'L={lanes} {tag}')
+        if (kind, term) == LANDER_STANDARD:
+            path = row['straight']
+            straight[lanes] = path['instructions']
+            loop = row['loop']
+            log(f'[build] SASS L={lanes} lander/standard: step loop '
+                f'{loop["instructions"]} instructions, {loop["BRA"]} BRA, '
+                f'{loop["CALL"]} CALL, {loop["LDL"]} LDL, {loop["STL"]} STL, '
+                f'{loop["SHFL"]} SHFL, {loop["inner_loops"]} inner loop(s); '
+                f'straight path {path["instructions"]} instructions, '
+                f'{path["BRA"]} BRA, {path["SHFL"]} SHFL, {path["MUFU"]} '
+                f'MUFU; {row["registers"]} registers, {row["stack"]} B '
+                f'stack')
+    for lanes in sorted(by_lanes):
+        log(f'[build] L={lanes}, registers (stack B, spill stores/loads B) '
+            f'of {len(by_lanes[lanes])} instantiations: '
+            + ', '.join(sorted(by_lanes[lanes])))
+    log(f'[build] instantiations with spills: {spills or "none"}')
+    return straight
 
 
-def traps_phase():
+def traps_phase(device):
     """The PyTorch roundings that the plain versions must avoid to match
-    the kernels bit for bit, counted on the card."""
+    the kernels bit for bit, counted on the card; and the exhaustive proof
+    that the kernel's sincosf is sinf and cosf."""
     from gym_copter_tpu_torch.core.device import div
+    from gym_copter_tpu_torch.ops import fused_rollout as fr
 
-    x = torch.linspace(0.1, 10.0, 1 << 20, device='cuda')
+    x = torch.linspace(0.1, 10.0, 1 << 20, device=device)
     n_div = int((x / 1.38 != div(x, 1.38)).sum())
     n_sin = int((torch.sin(x).cpu() != torch.sin(x.cpu())).sum())
     log(f'[traps] CUDA x / 1.38 (reciprocal multiply) differs from IEEE '
         f'division in {n_div} of {x.numel()} float32 values; CUDA and CPU '
         f'torch.sin differ in {n_sin}')
+    t0 = time.perf_counter()
+    n = fr.sincos_mismatches(device)
+    log(f'[traps] sincosf differs from sinf/cosf in {n} of 2^32 float32 '
+        f'values ({time.perf_counter() - t0:.2f} s)')
+    if n != 0:
+        raise AssertionError('sincosf does not give sinf/cosf bits')
 
 
 def _cases():
@@ -120,18 +188,20 @@ def parity_phase(device):
         state = cases.reset_state(params, spec, b, device, pose=pose)
         act = torch.tensor(action, dtype=torch.float32,
                            device=device)[:, None].expand(-1, b)
-        kernel = fr.fused_rollout(state, act, num_steps, params, spec,
-                                  seed=seed)
         plain = fr.fused_rollout_reference(state, act, num_steps, params,
                                            spec, seed=seed)
-        torch.cuda.synchronize()
-        err = cases.compare(kernel, plain, what)
-        eps = kernel[1]['episodes']
-        if int(eps.min()) < 1 and b < MAIN_B:
-            raise AssertionError(f'{what}: an env finished no episode')
-        worst = max(worst, err)
-        log(f'[parity] {what}: B={b} T={num_steps} seed={seed} bit-exact, '
-            f'episodes/env {float(eps.float().mean()):.2f}')
+        for lanes in fr.LANES_PER_ENV:
+            kernel = cases.run_kernel(state, act, num_steps, params, spec,
+                                      seed, lanes)
+            torch.cuda.synchronize()
+            err = cases.compare(kernel, plain, f'{what} L={lanes}')
+            eps = kernel[1]['episodes']
+            if int(eps.min()) < 1 and b < MAIN_B:
+                raise AssertionError(f'{what}: an env finished no episode')
+            worst = max(worst, err)
+        log(f'[parity] {what}: B={b} T={num_steps} seed={seed} bit-exact '
+            f'at L={fr.LANES_PER_ENV}, episodes/env '
+            f'{float(eps.float().mean()):.2f}')
     return worst
 
 
@@ -194,6 +264,8 @@ def main_path_phase():
     state, totals = timed(f'fused_rollout({MAIN_T})',
                           lambda: env.fused_rollout(state, action, MAIN_T))
     launches = {'fused_rollout': fr.fused_rollout.launches}
+    lanes = fr.lanes_for(MAIN_B, torch.cuda.get_device_properties(
+        env.device).multi_processor_count)
 
     if env.device.type != 'cuda':
         raise AssertionError('make() did not default to the card')
@@ -212,7 +284,8 @@ def main_path_phase():
             raise AssertionError(f'main path: {name} is not finite')
     log(f'[main] B={MAIN_B}: ' + ', '.join(
         f'{name} {sec:.4f} s' for name, sec in stages.items())
-        + f'; path=fused; launches {launches}; episodes/env '
+        + f'; path=fused; launches {launches}; lanes per env {lanes}; '
+        f'episodes/env '
         f'{float(totals["episodes"].float().mean()):.2f}; '
         f'{int(traj.done.sum())} episodes ended in the rollout')
 
@@ -232,50 +305,93 @@ def main_path_phase():
     return launches, err, plain_ms, (env, before_fused, action)
 
 
-def timing_phase(main):
-    """Kernel times with CUDA events after warm-up: at the main path's
-    shape, and differential 10k vs 110k steps at 4096 and 65,536 envs."""
+def _kernel_call(fr, env, state, action, lanes):
+    """t -> one fused rollout of t steps: through the public entry point
+    (the wrapper's own lanes per env) when `lanes` is None, else through
+    the launch with `lanes` forced (the motor mix done once, outside)."""
+    if lanes is None:
+        return lambda t: fr.fused_rollout(state, action, t, env.params,
+                                          env.spec)
+    arrays, u, c = fr._prepare(state, action, env.params, env.spec, None)
+    return lambda t: fr._rollout_cuda(arrays, u, t, 0, c, lanes=lanes)
+
+
+def sweep_phase():
+    """Differential kernel time, T = 110k minus T = 10k steps in one launch
+    each (median of 5, CUDA events, host hidden), at each batch of SWEEP_B
+    and each lanes-per-env choice; and one public 10k-step call at MAIN_B:
+    its device time, its host time, and the two together behind an idle
+    card.  Runs on whatever package is imported, so it also times an older
+    tree that has no lanes choice."""
     import gym_copter_tpu_torch as gct
+    from gym_copter_tpu_torch.control.heuristics import MOTORVAL
     from gym_copter_tpu_torch.ops import fused_rollout as fr
 
-    env, state, action = main
+    choices = getattr(fr, 'LANES_PER_ENV', (None,))
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-
-    def kernel(st, act, t):
-        return lambda: fr.fused_rollout(st, act, t, env.params, env.spec,
-                                        env_ids=None)
-
-    kernel(state, action, 1000)()  # warm-up
-    torch.cuda.synchronize()
-    out['ms'], out['ms_samples'], out['wrapper_host_ms'] = _event_ms(
-        kernel(state, action, MAIN_T), 5, hide_host=True)
-    # the same call timed with an idle card in front of it: the events then
-    # also hold the host's time to enqueue the work
-    out['ms_host_exposed'], out['ms_host_exposed_samples'], _ = _event_ms(
-        kernel(state, action, MAIN_T), 5)
-    log(f'[time] fused kernel B={MAIN_B} T={MAIN_T}: {out["ms"]:.3f} ms of '
-        f'device time (samples {out["ms_samples"]}); the wrapper takes '
-        f'{out["wrapper_host_ms"]:.3f} ms of host time to enqueue it; with '
-        f'that exposed on an idle card {out["ms_host_exposed"]:.3f} ms '
-        f'(samples {out["ms_host_exposed_samples"]})')
-    for b in (MAIN_B, 65_536):
-        e = gct.make('Lander3D-v0', num_envs=b)
-        st, _ = e.reset()
-        act = torch.full((4, b), action[0, 0].item(), device=e.device)
-        kernel(st, act, 1000)()
-        lo, lo_samples, _ = _event_ms(kernel(st, act, 10_000), 5,
-                                      hide_host=True)
-        hi, hi_samples, _ = _event_ms(kernel(st, act, 110_000), 5,
-                                      hide_host=True)
-        per_step = (hi - lo) / 100_000
-        out[f'B{b}'] = {'ms_10k': lo, 'ms_110k': hi,
+    for b in SWEEP_B:
+        env = gct.make('Lander3D-v0', num_envs=b)
+        state, _ = env.reset()
+        action = torch.full((4, b), MOTORVAL, device=env.device)
+        chosen = (fr.lanes_for(b, sm_count) if hasattr(fr, 'lanes_for')
+                  else None)
+        if b == MAIN_B:
+            call = _kernel_call(fr, env, state, action, None)
+            call(1000)
+            out['ms'], out['ms_samples'], out['wrapper_host_ms'] = _event_ms(
+                lambda: call(MAIN_T), 5, hide_host=True)
+            # with an idle card in front of the call, the events also hold
+            # the host's time to enqueue the work
+            out['ms_host_exposed'], out['ms_host_exposed_samples'], _ = \
+                _event_ms(lambda: call(MAIN_T), 5)
+            log(f'[sweep] public call B={b} T={MAIN_T} L={chosen}: '
+                f'{out["ms"]:.3f} ms of device time (samples '
+                f'{out["ms_samples"]}); the wrapper takes '
+                f'{out["wrapper_host_ms"]:.3f} ms of host time to enqueue '
+                f'it; with that exposed on an idle card '
+                f'{out["ms_host_exposed"]:.3f} ms (samples '
+                f'{out["ms_host_exposed_samples"]})')
+        for lanes in choices:
+            call = _kernel_call(fr, env, state, action, lanes)
+            call(1000)  # warm-up
+            lo, lo_samples, _ = _event_ms(lambda: call(10_000), 5,
+                                          hide_host=True)
+            hi, hi_samples, _ = _event_ms(lambda: call(110_000), 5,
+                                          hide_host=True)
+            per_step = (hi - lo) / 100_000
+            key = f'B{b}' if lanes is None else f'B{b}_L{lanes}'
+            out[key] = {'lanes': lanes, 'chosen': lanes == chosen,
+                        'ms_10k': lo, 'ms_110k': hi,
                         'ms_10k_samples': lo_samples,
                         'ms_110k_samples': hi_samples,
                         'us_per_step': per_step * 1e3,
                         'env_steps_per_s': b / (per_step * 1e-3)}
-        log(f'[time] fused kernel B={b}: {lo:.3f} ms at T=10k, {hi:.3f} ms '
-            f'at T=110k -> {per_step * 1e3:.4f} us/step, '
-            f'{b / (per_step * 1e-3):.4g} env-steps/s')
+            mark = ' (chosen)' if lanes == chosen else ''
+            log(f'[sweep] B={b} L={lanes}{mark}: '
+                f'{lo:.3f} ms at T=10k, {hi:.3f} ms at T=110k -> '
+                f'{per_step * 1e3:.4f} us/step, '
+                f'{b / (per_step * 1e-3):.4g} env-steps/s')
+    return out
+
+
+def timing_phase(main, straight, max_mhz):
+    """Kernel times with CUDA events after warm-up (the sweep), the SM clock
+    under load, the plain eager step, and the bound and issue-limited
+    time."""
+    from gym_copter_tpu_torch.ops import fused_rollout as fr
+
+    env, state, action = main
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    lanes = fr.lanes_for(MAIN_B, sm_count)
+    out = {'lanes': lanes, **sweep_phase()}
+
+    # the SM clock while a ~2 s rollout runs
+    _kernel_call(fr, env, state, action, None)(4_000_000)
+    clock = _smi('clocks.sm')
+    torch.cuda.synchronize()
+    out['sm_mhz_under_load'] = _mhz(clock)
+    log(f'[time] SM clock under load: {clock} (max {max_mhz:.0f} MHz)')
 
     # the plain eager env step (envs/base.step with its reset draw)
     st, _ = env.reset()
@@ -303,19 +419,52 @@ def timing_phase(main):
         f'= {ops_ms:.4f} ms, {nbytes} bytes / 3.35 TB/s = {bytes_ms:.6f} ms; '
         f'kernel {out["ms"]:.3f} ms of device time = '
         f'{out["bound_ms"] / out["ms"]:.2%} of the bound')
+    # issue-limited time: the straight path's instructions for every lane
+    # of every env-step, over one warp instruction per scheduler per cycle
+    issue_rate = fr.SCHEDULERS_PER_SM * sm_count * 32 * max_mhz * 1e6
+    out['issue'] = {}
+    for b, n in ((MAIN_B, lanes), (65_536, fr.lanes_for(65_536, sm_count))):
+        per_env_step = straight[n] * n
+        us = per_env_step * b / issue_rate * 1e6
+        measured = out[f'B{b}_L{n}']['us_per_step']
+        out['issue'][f'B{b}'] = {'lanes': n,
+                                 'instructions_per_env_step': per_env_step,
+                                 'us_per_step': us}
+        log(f'[time] issue-limited B={b} L={n}: {per_env_step} lane-'
+            f'instructions per env-step (straight path {straight[n]} x {n}) '
+            f'x {b} / ({fr.SCHEDULERS_PER_SM * sm_count} schedulers x 32 x '
+            f'{max_mhz:.0f} MHz) = {us:.4f} us/step, {us * MAIN_T / 1e3:.4f} '
+            f'ms per {MAIN_T} steps; measured {measured:.4f} us/step '
+            f'({us / measured:.1%} of issue)')
+    out['issue_ms'] = out['issue'][f'B{MAIN_B}']['us_per_step'] * MAIN_T / 1e3
     return out
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--sweep-only', action='store_true',
+                    help='run only the device phase and the timing sweep')
+    ap.add_argument('--tree', type=Path, default=None,
+                    help='import gym_copter_tpu_torch from this checkout '
+                         '(with --sweep-only, to time another version)')
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
-    name, count, smi = device_phase()
-    build_phase()
-    traps_phase()
-    parity_err = parity_phase(torch.device('cuda'))
+    if args.tree is not None:
+        sys.path.insert(0, str(args.tree.resolve()))
+    name, count, smi, max_mhz = device_phase()
+    if args.sweep_only:
+        import gym_copter_tpu_torch
+        log(f'[sweep] package {Path(gym_copter_tpu_torch.__file__).parent}')
+        log(json.dumps({'sweep': sweep_phase(), 'card': smi}))
+        return 0
+    device = torch.device('cuda')
+    straight = build_phase()
+    traps_phase(device)
+    parity_err = parity_phase(device)
     launches, main_err, plain_ms, main = main_path_phase()
-    times = timing_phase(main)
+    times = timing_phase(main, straight, max_mhz)
     log(f'[time] card: {smi}')
     log(json.dumps({'timings': times, 'card': smi}))
     kernels = [{
@@ -324,12 +473,14 @@ def main():
         'source': 'gym_copter_tpu_torch/ops/csrc/fused_rollout.cu',
         'replaces': 'gym_copter_tpu/ops/pallas_rollout.py:426',
         'launches': launches['fused_rollout'],
+        'lanes': times['lanes'],
         'bit_exact': True,
         'max_abs_err': max(parity_err, main_err),
         'ms': times['ms'],
         'plain_ms': plain_ms,
         'bound_ms': times['bound_ms'],
         'bound_by': times['bound_by'],
+        'issue_ms': times['issue_ms'],
         'library_ms': None,
     }]
     for k in kernels:

@@ -33,15 +33,16 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _loaded: dict = {}
 
 
-def nvcc() -> str:
-    """The nvcc of $CUDA_HOME, /usr/local/cuda, or the PATH."""
+def tool(name: str) -> str:
+    """A CUDA tool (nvcc, cuobjdump) of $CUDA_HOME, /usr/local/cuda, or the
+    PATH."""
     for home in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
-        if home and (Path(home) / 'bin' / 'nvcc').is_file():
-            return str(Path(home) / 'bin' / 'nvcc')
-    found = shutil.which('nvcc')
+        if home and (Path(home) / 'bin' / name).is_file():
+            return str(Path(home) / 'bin' / name)
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError('nvcc not found: set CUDA_HOME or put nvcc on '
-                           'the PATH')
+        raise RuntimeError(f'{name} not found: set CUDA_HOME or put it on '
+                           f'the PATH')
     return found
 
 
@@ -56,6 +57,17 @@ def ptxas_report(name: str) -> str:
     return library_path(name).with_suffix('.ptxas.txt').read_text()
 
 
+def compile_source(source: Path, out: Path) -> str:
+    """nvcc `source` into the shared library `out`; returns ptxas's
+    report."""
+    proc = subprocess.run(
+        [tool('nvcc'), *NVCC_FLAGS, '-o', str(out), str(source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed for {source}:\n{proc.stdout}')
+    return proc.stdout
+
+
 def build_all(names=SOURCES) -> dict:
     """Compile every source whose library is missing, one nvcc each.
     Returns {name: library path}."""
@@ -65,12 +77,8 @@ def build_all(names=SOURCES) -> dict:
         if out.exists():
             continue
         tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-        proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed for {name}:\n{proc.stdout}')
-        out.with_suffix('.ptxas.txt').write_text(proc.stdout)
+        out.with_suffix('.ptxas.txt').write_text(
+            compile_source(CSRC / f'{name}.cu', tmp))
         os.replace(tmp, out)
     return {name: library_path(name) for name in names}
 

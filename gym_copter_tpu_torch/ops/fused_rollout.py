@@ -3,9 +3,10 @@
 The counterpart of `gym_copter_tpu/ops/pallas_rollout.py`.  The batched env
 step is about 150 flops per env; run step by step, every step reads and
 writes the whole env state in device memory.  `fused_rollout` instead runs
-the whole T-step rollout in one launch of `csrc/fused_rollout.cu`: each
-thread holds one env's state in registers for all T steps and writes back
-only the final state, its reward sum and its count of finished episodes.
+the whole T-step rollout in one launch of `csrc/fused_rollout.cu`: a group
+of L lanes (`lanes_for`) holds one env's state in registers for all T
+steps and writes back only the final state, its reward sum and its count
+of finished episodes.
 
 The transition is that of `envs/base.step` under a constant action: the
 Eq.6 thrust and torque terms are computed once, outside the kernel, by
@@ -40,6 +41,12 @@ from gym_copter_tpu_torch.envs.base import EnvState, TaskSpec
 from gym_copter_tpu_torch.ops import _build
 
 LANES = 128
+# lanes per env the kernel is built for; the warp schedulers of an SM; and
+# the warps per scheduler up to which 4 lanes per env beat 1 (PERF.md,
+# the lanes sweep of chip_smoke.py)
+LANES_PER_ENV = (1, 4)
+SCHEDULERS_PER_SM = 4
+WARPS_PER_SCHEDULER = 3
 
 _KINDS = ('lander', 'lander_simple', 'hover', 'althold', 'takeoff',
           'distance', 'target')
@@ -376,22 +383,54 @@ def _rollout_plain(arrays, u, num_steps, seed, c: StepConstants,
             episode, acc, eps)
 
 
+def lanes_for(b: int, sm_count: int) -> int:
+    """Lanes per env for a batch of `b` envs on a card of `sm_count` SMs:
+    the largest L in LANES_PER_ENV whose L * b threads make at most
+    WARPS_PER_SCHEDULER warps per warp scheduler, else 1.  A group of L
+    lanes splits the step's independent heavy work, which shortens the
+    step where a scheduler has too few warps to hide its latency, and only
+    replicates work once the schedulers are busy."""
+    budget = WARPS_PER_SCHEDULER * SCHEDULERS_PER_SM * sm_count * 32
+    fits = [n for n in LANES_PER_ENV if n * b <= budget]
+    return max(fits) if fits else 1
+
+
 def _kernel_library():
-    """The built `csrc/fused_rollout.cu`, with its C signature declared."""
+    """The built `csrc/fused_rollout.cu`, with its C signatures declared."""
     lib = _build.load('fused_rollout')
     fn = lib.gct_fused_rollout
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 22
-                       + [ctypes.c_int] * 3
+                       + [ctypes.c_int] * 4
                        + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
                           ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        check = lib.gct_check_sincos
+        check.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        check.restype = ctypes.c_int
     return lib
 
 
-def _rollout_cuda(arrays, u, num_steps, seed, c: StepConstants):
-    """Launch `csrc/fused_rollout.cu` on the current stream."""
+def sincos_mismatches(device) -> int:
+    """How many of the 2**32 float32 values give other bits from the
+    kernel's sincosf than from sinf and cosf (a NaN against a NaN counts
+    as equal), counted on the card by `gct_check_sincos`."""
+    lib = _kernel_library()
+    differ = torch.zeros((), dtype=torch.int64, device=device)
+    with torch.cuda.device(differ.device):
+        err = lib.gct_check_sincos(
+            differ.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'gct_check_sincos launch failed: '
+                           f'{_build.error_string(lib, err)}')
+    return int(differ)
+
+
+def _rollout_cuda(arrays, u, num_steps, seed, c: StepConstants, *,
+                  lanes=None):
+    """Launch `csrc/fused_rollout.cu` on the current stream, with `lanes`
+    lanes per env (default `lanes_for` the batch and the card)."""
     x, perturb = arrays[0], arrays[1]
     b = x.shape[-1]
     if 12 * b >= 2 ** 31:
@@ -417,6 +456,12 @@ def _rollout_cuda(arrays, u, num_steps, seed, c: StepConstants):
             raise ValueError(
                 f'fused_rollout: {name} must be {dtype} of shape {shape} on '
                 f'the card, got {a.dtype} {tuple(a.shape)}')
+    if lanes is None:
+        lanes = lanes_for(b, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+    if lanes not in LANES_PER_ENV:
+        raise ValueError(f'fused_rollout: lanes must be one of '
+                         f'{LANES_PER_ENV}, got {lanes}')
     outs = (torch.empty_like(x), torch.empty_like(perturb)) + tuple(
         torch.empty_like(a) for a in arrays[2:7]) + (
         torch.empty_like(arrays[5]), torch.empty_like(arrays[2]))
@@ -428,7 +473,7 @@ def _rollout_cuda(arrays, u, num_steps, seed, c: StepConstants):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gct_fused_rollout(
             *(a.data_ptr() for a in arrays + tuple(u) + outs),
-            b, num_steps, seed, fc, len(fc), ic, len(ic), stream)
+            b, num_steps, seed, lanes, fc, len(fc), ic, len(ic), stream)
     if err != 0:
         raise RuntimeError(f'fused_rollout kernel launch failed: '
                            f'{_build.error_string(lib, err)}')

@@ -8,8 +8,9 @@ there, skip the repo's conftest (which sets JAX up):
 
 The cases, shared with `chip_smoke.py`, are in tests/torch_cuda_cases.py:
 every task kind, with and without random resets, Lander3D at 4096 envs,
-and a batch that is not a multiple of 128.  Kernel and plain version must
-agree bit for bit in every field.
+and batches that are not a multiple of 128 or of 8, each at every
+lanes-per-env choice (1, 4).  Kernel and plain version must agree bit
+for bit in every field.
 """
 
 import pytest
@@ -21,9 +22,10 @@ from gym_copter_tpu_torch.core import vehicles
 from gym_copter_tpu_torch.envs import tasks
 from gym_copter_tpu_torch.envs.registry import CopterEnv
 from gym_copter_tpu_torch.ops import fused_rollout as fr
-from torch_cuda_cases import compare, reset_state, scenarios
+from torch_cuda_cases import compare, reset_state, run_kernel, scenarios
 
 SCENARIOS = scenarios()
+_plain = {}
 
 
 def _card():
@@ -33,20 +35,31 @@ def _card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('lanes', fr.LANES_PER_ENV)
 @pytest.mark.parametrize('scenario', SCENARIOS, ids=[s[0] for s in SCENARIOS])
-def test_kernel_matches_plain(scenario):
+def test_kernel_matches_plain(scenario, lanes):
+    """The kernel at every lanes-per-env choice against the plain version
+    (computed once per scenario)."""
     device = _card()
     what, spec, params, action, num_steps, pose, seed, b = scenario
     state = reset_state(params, spec, b, device, pose=pose)
     act = torch.tensor(action, dtype=torch.float32,
                        device=device)[:, None].expand(-1, b)
     launches = fr.fused_rollout.launches
-    kernel = fr.fused_rollout(state, act, num_steps, params, spec, seed=seed)
+    kernel = run_kernel(state, act, num_steps, params, spec, seed, lanes)
     torch.cuda.synchronize()
     assert fr.fused_rollout.launches == launches + 1
-    plain = fr.fused_rollout_reference(state, act, num_steps, params, spec,
-                                       seed=seed)
-    assert compare(kernel, plain, what) == 0.0
+    if what not in _plain:
+        _plain[what] = fr.fused_rollout_reference(state, act, num_steps,
+                                                  params, spec, seed=seed)
+    assert compare(kernel, _plain[what], f'{what} L={lanes}') == 0.0
+
+
+@pytest.mark.cuda
+def test_sincosf_equals_sinf_and_cosf_on_every_float():
+    """The kernel's sincosf gives sinf's and cosf's bits on all 2**32
+    float32 values."""
+    assert fr.sincos_mismatches(_card()) == 0
 
 
 @pytest.mark.cuda
@@ -69,6 +82,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match='same CUDA device'):
         fr.fused_rollout(state._replace(steps=state.steps.cpu()), action, 10,
                          params, spec)
+    arrays, u, c = fr._prepare(state, action, params, spec, None)
+    with pytest.raises(ValueError, match='lanes must be one of'):
+        fr._rollout_cuda(arrays, u, 10, 0, c, lanes=8)
     assert fr.fused_rollout.launches == launches
 
 

@@ -246,3 +246,22 @@ def test_make_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match='no CUDA device'):
             gt.make('Lander3D-v0')
+
+
+@pytest.mark.parametrize('sm_count', (1, 66, 114, 132))
+def test_lanes_for_keeps_the_warps_per_scheduler_budget(sm_count):
+    """lanes_for gives the most lanes per env whose threads make at most
+    WARPS_PER_SCHEDULER warps per warp scheduler (4 per SM), and 1 when
+    even that does not fit."""
+    budget = fr.WARPS_PER_SCHEDULER * fr.SCHEDULERS_PER_SM * sm_count * 32
+    for b in (1, 31, 128, 1000, 1024, 4096, 4099, budget // 4,
+              budget // 4 + 1, budget // 2, budget, budget + 1, 65536):
+        lanes = fr.lanes_for(b, sm_count)
+        assert lanes in fr.LANES_PER_ENV
+        if lanes > 1:
+            assert lanes * b <= budget
+        bigger = [n for n in fr.LANES_PER_ENV if n > lanes]
+        assert all(n * b > budget for n in bigger)
+    if sm_count == 132:
+        assert [fr.lanes_for(b, 132) for b in (
+            1024, 4096, 8192, 12288, 16384, 65536)] == [4, 4, 4, 4, 1, 1]

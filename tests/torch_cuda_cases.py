@@ -3,8 +3,9 @@ PyTorch version on the card, shared by tests/test_torch_cuda.py and
 chip_smoke.py.  Imports nothing of JAX.
 
 Each case is every task kind with and without random resets, Lander3D at
-4096 envs, and one batch that is not a multiple of 128.  Kernel and plain
-version must agree bit for bit in every field (`compare`).
+4096 envs, and batches that are not a multiple of 128 (1000 envs) or of
+8 (4099).  Kernel and plain version must agree bit for bit in every field
+(`compare`), at every lanes-per-env choice (`run_kernel`).
 """
 
 import torch
@@ -21,6 +22,15 @@ def reset_state(params, spec, b, device, pose=None):
                       torch.arange(b, dtype=torch.int32, device=device),
                       torch.zeros(b, dtype=torch.int32, device=device),
                       params, spec, pose=pose)[0]
+
+
+def run_kernel(state, action, num_steps, params, spec, seed, lanes):
+    """The fused rollout through the kernel with `lanes` lanes per env."""
+    from gym_copter_tpu_torch.ops import fused_rollout as fr
+
+    arrays, u, c = fr._prepare(state, action, params, spec, None)
+    return fr._finish(state, fr._rollout_cuda(arrays, u, num_steps, seed, c,
+                                              lanes=lanes))
 
 
 def compare(kernel, plain, what):
@@ -74,6 +84,8 @@ def scenarios():
          [MOTORVAL] * 4, 2000, None, 7, MAIN_B),
         ('lander3d-1000-envs', tasks.LANDER_3D, params(200, 30.0),
          [MOTORVAL] * 4, 500, None, 7, 1000),
+        ('lander3d-4099-envs', tasks.LANDER_3D, params(200, 30.0),
+         [MOTORVAL] * 4, 500, None, 7, 4099),
         ('lander1d', tasks.LANDER_1D, params(50), [MOTORVAL], 120, None, 0,
          128),
         ('lander2d', tasks.LANDER_2D, params(60, 30.0), [MOTORVAL] * 2, 150,
