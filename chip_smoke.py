@@ -26,6 +26,13 @@ Phases, each printed before the last line:
      10,000-step fused rollout, with every launch count set to 0 just before
      and read just after, and the lanes per env the wrapper chose; the fused
      result is held against the plain version on the same inputs;
+  5b. the PPO path ([ppo]): train('Lander3D-v0', num_envs=4096) for 3
+     updates at the recorded recipe; 3 graphed train steps held bit for bit
+     against the eager steps from the same state; one small float32 step on
+     the card against the CPU; device ms per phase (rollout, GAE, update),
+     eager and graphed, and env-steps/s of training; the rollout and the
+     evaluation in graphs of other lengths; operations and CUDA graph nodes
+     per env step; one {"ppo": ...} JSON line;
   6. times with CUDA events after warm-up: the kernel's device time at the
      main path's shape, with the wrapper's host time apart; the kernel at
      1024, 4096, 8192, 12,288, 16,384 and 65,536 envs at every lanes-per-env
@@ -41,6 +48,10 @@ exits non-zero; without a CUDA device the script exits non-zero at once.
 runs only phase 1 and the timing sweep of phase 6, on the package found in
 DIR if given (an unpacked older commit, to compare two versions in one
 run).
+
+    python3 chip_smoke.py --ppo-only
+
+runs only phase 1 and the PPO phase.
 """
 
 import argparse
@@ -440,10 +451,307 @@ def timing_phase(main, straight, max_mhz):
     return out
 
 
+# the recipe of the recorded 4096-env curves (scripts/train_curve.py's
+# defaults); minibatches and shuffle_block resolve to 16 and 128
+PPO_CFG = dict(rollout_steps=128, hidden=128, epochs=4, learning_rate=3e-4,
+               gamma=0.995, entropy_coef=0.01, value_clip=0.0,
+               target_kl=0.015, anneal_lr_floor=0.0)
+PPO_STEPS = 3
+# largest absolute difference allowed between graphed and eager train
+# steps from the same state
+PPO_GRAPH_TOL = 0.0
+# the LR schedule of a 600-update run, as train() would anneal it
+PPO_RUN_UPDATES = 600
+
+
+class _OpCounter:
+    """Counts the ATen operations dispatched inside the block (on the card,
+    each is about one kernel launch)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def _graph_nodes(fn, inputs, warmup):
+    """(nodes, kernel nodes) of fn captured as a CUDA graph, counted with
+    the driver's cuGraphGetNodes and cuGraphNodeGetType."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn(*inputs)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn(*inputs)
+    cu = ctypes.CDLL('libcuda.so.1')
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        raise RuntimeError('cuGraphGetNodes failed')
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError('cuGraphGetNodes failed')
+    kind = ctypes.c_int()
+    kernels = 0
+    for node in nodes:
+        if cu.cuGraphNodeGetType(node, ctypes.byref(kind)) != 0:
+            raise RuntimeError('cuGraphNodeGetType failed')
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    del g
+    return n.value, kernels
+
+
+def _ppo_times(step, ts, graphed, reps):
+    """Median device ms of each phase (rollout, GAE, update) by CUDA events,
+    median wall seconds of the whole step (host clock, synchronized), and
+    the samples."""
+    phases, walls = [], []
+    for _ in range(reps):
+        marks = []
+        t0 = time.perf_counter()
+        step.run(ts, graphed, marks)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        phases.append([marks[i].elapsed_time(marks[i + 1])
+                       for i in range(3)])
+    med = [sorted(p[i] for p in phases)[reps // 2] for i in range(3)]
+    return {'rollout_ms': med[0], 'gae_ms': med[1], 'update_ms': med[2],
+            'step_s': sorted(walls)[reps // 2], 'samples_ms': phases,
+            'step_s_samples': walls}
+
+
+def ppo_phase():
+    """The PPO slice on the card: train() at the full-width recipe, graphed
+    train steps held against the eager ones, one small step against the
+    CPU, the graphed evaluation, times per phase, launches and graph
+    nodes per env step."""
+    import gym_copter_tpu_torch as gct
+    from gym_copter_tpu_torch.core import prng
+    from gym_copter_tpu_torch.learn import optim, ppo
+    from gym_copter_tpu_torch.ops import fused_rollout as fr
+
+    cases = _cases()
+    cfg = ppo.PPOConfig(**PPO_CFG)
+    out = {'envs': MAIN_B, 'config': PPO_CFG}
+
+    # 1. the user's entry point, launch counts set to 0 just before
+    fr.fused_rollout.launches = 0
+    evals = []
+    t0 = time.perf_counter()
+    ts, _ = ppo.train('Lander3D-v0', num_envs=MAIN_B,
+                         num_updates=PPO_STEPS, cfg=cfg, log_every=2,
+                         callback=lambda i, m: evals.append((i, m)))
+    torch.cuda.synchronize()
+    out['train_s'] = time.perf_counter() - t0
+    out['launches'] = {'fused_rollout': fr.fused_rollout.launches}
+    if int(ts.update_idx) != PPO_STEPS or [i for i, _ in evals] != [0, 2]:
+        raise AssertionError('train() did not take its steps')
+    for i, m in evals:
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f'train() update {i}: {bad} not finite')
+    out['train_metrics'] = evals
+    log(f'[ppo] train(Lander3D-v0, {MAIN_B} envs, {PPO_STEPS} updates, '
+        f'evaluated at 0 and 2): {out["train_s"]:.1f} s with the graphs\' '
+        f'capture; eval_return {[round(m["eval_return"], 2) for _, m in evals]}'
+        f'; launches {out["launches"]} (PPO rolls out with the per-step '
+        f'env under a policy)')
+
+    # 2. graphed train steps against the eager ones from the same state
+    env = gct.make('Lander3D-v0', num_envs=MAIN_B)
+    sched = optim.linear_schedule(
+        cfg.learning_rate, 0.0, PPO_RUN_UPDATES * cfg.epochs * 16)
+    step, opt = ppo.make_train_step(
+        env.params, env.spec, cfg, prng.PRNGKey(1, env.device), env.env_ids,
+        optimizer=optim.ClipAdam(cfg.max_grad_norm, sched))
+    if (step.cfg.minibatches, step.cfg.shuffle_block) != (16, 128):
+        raise AssertionError(f'recipe resolved to {step.cfg}')
+    ts0 = ppo.init_train_state(prng.PRNGKey(0, env.device), env.params,
+                               env.spec, cfg, MAIN_B, opt)
+    t0 = time.perf_counter()
+    g, _ = step(ts0)
+    torch.cuda.synchronize()
+    out['capture_s'] = time.perf_counter() - t0
+    g, e = ts0, ts0
+    errs, metric_errs = [], []
+    for i in range(PPO_STEPS):
+        g, mg = step(g)
+        e, me = step.eager(e)
+        errs.append(cases.state_diff(g, e, f'graphed vs eager step {i}'))
+        metric_errs.append(max(abs(float(mg[k]) - float(me[k]))
+                               for k in mg))
+        for k, v in mg.items():
+            if not math.isfinite(float(v)):
+                raise AssertionError(f'graphed step {i}: {k} not finite')
+    out['graphed_vs_eager_max_abs'] = errs
+    out['graphed_vs_eager_metrics_max_abs'] = metric_errs
+    if max(errs + metric_errs) > PPO_GRAPH_TOL:
+        raise AssertionError(f'graphed and eager steps differ: {errs}, '
+                             f'metrics {metric_errs}')
+    log(f'[ppo] {PPO_STEPS} graphed train steps against the eager steps '
+        f'from the same state (Lander3D-v0, {MAIN_B} envs, rollout 128, '
+        f'hidden 128, 4 epochs x 16 minibatches, blocks of 128, target_kl '
+        f'0.015): max abs difference of the train state per step {errs}, '
+        f'of the metrics {metric_errs} (0 is bit-equal); the first call '
+        f'captured the three graphs in {out["capture_s"]:.1f} s')
+
+    # 3. one small float32 step on the card against the same on the CPU
+    small = ppo.PPOConfig(rollout_steps=8, hidden=16, minibatches=2,
+                          epochs=4, learning_rate=1e-2, anneal_lr=False,
+                          target_kl=1e9)
+    cpu = torch.device('cpu')
+    hover = gct.make('Hover3D-v0', num_envs=16, device=cpu)
+    s_cpu, _ = ppo.make_train_step(hover.params, hover.spec, small,
+                                   prng.PRNGKey(0, cpu), hover.env_ids)
+    s_gpu, _ = ppo.make_train_step(
+        hover.params, hover.spec, small, prng.PRNGKey(0, env.device),
+        hover.env_ids.to(env.device))
+    ts_cpu = ppo.init_train_state(prng.PRNGKey(7, cpu), hover.params,
+                                  hover.spec, small, 16, s_cpu.optimizer)
+    want, _ = s_cpu(ts_cpu)
+    got, _ = s_gpu(cases.train_state_to(ts_cpu, env.device))
+    worst = 0.0
+    for a, b in zip(cases.state_tensors(got), cases.state_tensors(want)):
+        a = a.cpu()
+        if a.is_floating_point():
+            scale = float(b.abs().max()) or 1.0
+            worst = max(worst, float((a - b).abs().max()) / scale)
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * scale)
+        elif not torch.equal(a, b):
+            raise AssertionError('card and CPU steps differ in an integer '
+                                 'field')
+    out['card_vs_cpu_max_rel'] = worst
+    log(f'[ppo] one float32 train step (Hover3D-v0, 16 envs, 8 steps, '
+        f'hidden 16) on the card against the CPU: largest difference '
+        f'{worst:.3g} of each tensor\'s scale (held to rtol 1e-4)')
+
+    # 4. times per phase, eager and graphed, and env-steps/s of training
+    out['graphed'] = _ppo_times(step, g, True, 5)
+    out['eager'] = _ppo_times(step, g, False, 2)
+    per_step = MAIN_B * cfg.rollout_steps
+    out['env_steps_per_s'] = per_step / out['graphed']['step_s']
+    out['env_steps_per_s_eager'] = per_step / out['eager']['step_s']
+    for k in ('eager', 'graphed'):
+        t = out[k]
+        log(f'[ppo] {k}: rollout {t["rollout_ms"]:.2f} ms, GAE '
+            f'{t["gae_ms"]:.2f} ms, update {t["update_ms"]:.2f} ms of '
+            f'device time (CUDA events, median); {t["step_s"] * 1e3:.2f} ms '
+            f'per train step on the host clock = '
+            f'{per_step / t["step_s"]:.4g} env-steps/s of training')
+
+    # 5. the rollout graphed in chunks of 8 steps and as one 128-step
+    # graph, against the default 1-step graph
+    leaves = g.params.leaves()
+    r_whole = ppo._map(torch.clone, step._graphed_rollout(
+        leaves, g.env_state, g.obs, g.key))
+    out['rollout_ms_by_steps_per_graph'] = {
+        step.steps_per_graph: out['graphed']['rollout_ms']}
+    for k in (8, cfg.rollout_steps):
+        chunked = ppo.TrainStep(env.params, env.spec, step.cfg,
+                                step.base_key, env.env_ids, opt,
+                                steps_per_graph=k)
+        r = chunked._graphed_rollout(leaves, g.env_state, g.obs, g.key)
+        if not all(torch.equal(x, y) for x, y in zip(_flat(r_whole),
+                                                      _flat(r))):
+            raise AssertionError(f'the rollout in {k}-step graphs differs')
+        out['rollout_ms_by_steps_per_graph'][k] = _ppo_times(
+            chunked, g, True, 3)['rollout_ms']
+    log(f'[ppo] graphed rollout ms by env steps per graph (replayed '
+        f'128 / that times; bit-equal to the default): '
+        f'{out["rollout_ms_by_steps_per_graph"]}')
+
+    # 6. launches and graph nodes per env step
+    es, obs, key = g.env_state, g.obs, g.key
+    action = torch.full((4, MAIN_B), 1.625e-2, device=env.device)
+    with _OpCounter() as c_env:
+        env.step(es, action)
+    with _OpCounter() as c_step:
+        step.rollout(leaves, es, obs, key, 1)
+    out['ops_per_env_step'] = c_env.n
+    out['ops_per_policy_env_step'] = c_step.n
+    out['nodes_per_policy_env_step'] = _graph_nodes(
+        lambda *a: step.rollout(*a, 1), (leaves, es, obs, key), 1)
+    out['nodes_per_env_step'] = _graph_nodes(
+        lambda st: env.step(st, action), (es,), 1)
+    flat, _ = step.advantages(leaves, r_whole[3], r_whole[1])
+    out['nodes_gae'] = _graph_nodes(step.advantages,
+                                    (leaves, r_whole[3], r_whole[1]), 1)
+    out['nodes_update'] = _graph_nodes(
+        step.update, (leaves, g.opt_state, key, flat), 3)
+    log(f'[ppo] ATen operations per env.step {c_env.n}, per policy + env '
+        f'step {c_step.n}; CUDA graph (nodes, kernel nodes) per env.step '
+        f'{out["nodes_per_env_step"]}, per policy + env step '
+        f'{out["nodes_per_policy_env_step"]}, GAE graph '
+        f'{out["nodes_gae"]}, update graph {out["nodes_update"]}')
+
+    # 7. the evaluation: graphed (in the default 1-step graph, in 111-step
+    # graphs and as one 999-step graph) against eager, 1024 envs x 999
+    # steps
+    spec = env.spec
+    evaluate = ppo.make_eval_fn(env.params, spec, cfg)
+    t0 = time.perf_counter()
+    mean, total = evaluate(g.params)
+    torch.cuda.synchronize()
+    out['eval_capture_s'] = time.perf_counter() - t0
+    out['eval_ms'] = _event_ms(lambda: evaluate(g.params), 3)[0]
+    t0 = time.perf_counter()
+    e_mean, e_total = evaluate(g.params, graphed=False)
+    torch.cuda.synchronize()
+    out['eval_eager_ms'] = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(total, e_total) or not math.isfinite(float(mean)):
+        raise AssertionError('graphed and eager evaluations differ')
+    for k in (111, 999):
+        ev = ppo.make_eval_fn(env.params, spec, cfg, steps_per_graph=k)
+        if not torch.equal(ev(g.params)[1], total):
+            raise AssertionError(f'evaluation in {k}-step graphs differs')
+        out[f'eval_ms_{k}_step_graphs'] = _event_ms(lambda: ev(g.params),
+                                                    3)[0]
+    log(f'[ppo] evaluation (1024 envs x 999 steps): graphed '
+        f'{out["eval_ms"]:.1f} ms in a 1-step graph (the first call '
+        f'captured it in {out["eval_capture_s"]:.1f} s), in 111-step graphs '
+        f'{out["eval_ms_111_step_graphs"]:.1f} ms, as one 999-step graph '
+        f'{out["eval_ms_999_step_graphs"]:.1f} ms, eager '
+        f'{out["eval_eager_ms"]:.1f} ms; bit-equal; mean return '
+        f'{float(mean):.3f}')
+    return out
+
+
+def _flat(tree):
+    from gym_copter_tpu_torch.learn import ppo
+
+    out = []
+    ppo._map(out.append, tree)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--sweep-only', action='store_true',
                     help='run only the device phase and the timing sweep')
+    ap.add_argument('--ppo-only', action='store_true',
+                    help='run only the device phase and the PPO phase')
     ap.add_argument('--tree', type=Path, default=None,
                     help='import gym_copter_tpu_torch from this checkout '
                          '(with --sweep-only, to time another version)')
@@ -459,11 +767,16 @@ def main(argv=None):
         log(f'[sweep] package {Path(gym_copter_tpu_torch.__file__).parent}')
         log(json.dumps({'sweep': sweep_phase(), 'card': smi}))
         return 0
+    if args.ppo_only:
+        log(json.dumps({'ppo': ppo_phase(), 'card': smi}))
+        return 0
     device = torch.device('cuda')
     straight = build_phase()
     traps_phase(device)
     parity_err = parity_phase(device)
     launches, main_err, plain_ms, main = main_path_phase()
+    ppo_out = ppo_phase()
+    log(json.dumps({'ppo': ppo_out, 'card': smi}))
     times = timing_phase(main, straight, max_mhz)
     log(f'[time] card: {smi}')
     log(json.dumps({'timings': times, 'card': smi}))

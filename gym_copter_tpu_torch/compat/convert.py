@@ -1,8 +1,9 @@
-"""Carry parameters and env state across from the JAX package.
+"""Carry parameters, env state and PPO train state across from the JAX
+package.
 
-The env has no weights; what crosses is its configuration and its state.
-Neither function imports JAX: a JAX `EnvParams` is read through its
-NamedTuple fields, and a JAX `EnvState`'s arrays through `np.asarray`.
+No function here imports JAX: a JAX `EnvParams` is read through its
+NamedTuple fields, and arrays (EnvState leaves, PPO params pytrees, optax
+states) through `np.asarray`.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from gym_copter_tpu_torch.core.types import (EnvParams, LanderRewardParams,
                                              TaskParams, VehicleParams,
                                              WorldParams)
 from gym_copter_tpu_torch.envs.base import EnvState
+from gym_copter_tpu_torch.learn import optim
+from gym_copter_tpu_torch.learn.ppo import ActorCritic, TrainState
 
 _INT_FIELDS = ('status', 'ticks', 'steps', 'episode')
 
@@ -65,3 +68,78 @@ def env_state_to_numpy(s: EnvState) -> EnvState:
                           perturb=n(s.dyn.perturb), ticks=n(s.dyn.ticks)),
         prev_shaping=n(s.prev_shaping), steps=n(s.steps),
         episode=n(s.episode), initial_random_x=n(s.initial_random_x))
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    out = torch.from_numpy(np.array(np.asarray(a), copy=True))
+    return out.to(device=device, dtype=dtype or out.dtype)
+
+
+def ppo_params_from_numpy(p, device=None, dtype=None) -> ActorCritic:
+    """The port's ActorCritic from a JAX PPO params pytree
+    ({'actor': [{'w', 'b'}, ...], 'critic': [...], 'log_std'}, leaves read
+    with `np.asarray`).  Floats keep their dtype unless `dtype` is given;
+    device defaults to the card."""
+    device = resolve_device(device)
+
+    def layers(ls):
+        return [(_tensor(layer['w'], device, dtype),
+                 _tensor(layer['b'], device, dtype)) for layer in ls]
+
+    return ActorCritic(layers(p['actor']), layers(p['critic']),
+                       _tensor(p['log_std'], device, dtype))
+
+
+def ppo_params_to_numpy(params: ActorCritic) -> dict:
+    """The JAX pytree layout of `params`, with numpy leaves."""
+    def layers(ls):
+        return [{'w': layer.w.detach().cpu().numpy(),
+                 'b': layer.b.detach().cpu().numpy()} for layer in ls]
+
+    return {'actor': layers(params.actor), 'critic': layers(params.critic),
+            'log_std': params.log_std.detach().cpu().numpy()}
+
+
+def _optax_states(state):
+    """The optax states nested in a chain's state tuple, depth first."""
+    if hasattr(state, '_fields'):
+        return [state]
+    if isinstance(state, tuple):
+        return [s for sub in state for s in _optax_states(sub)]
+    return []
+
+
+def opt_state_from_numpy(state, device=None, dtype=None) -> optim.AdamState:
+    """The port's AdamState from the state of the JAX package's optimizer,
+    `optax.chain(clip_by_global_norm, adam(lr))`: Adam's count, mu and nu,
+    and the count of `scale_by_schedule` when the rate is a schedule (else
+    0)."""
+    device = resolve_device(device)
+    states = _optax_states(state)
+    # fields, not attributes: every tuple has a `count` method
+    adam = next(s for s in states if 'mu' in s._fields)
+    sched = [s for s in states
+             if 'count' in s._fields and 'mu' not in s._fields]
+
+    def leaves(tree):
+        return ppo_params_from_numpy(tree, device, dtype).leaves()
+
+    def count(c):
+        return _tensor(c, device, torch.int32)
+
+    return optim.AdamState(
+        count=count(adam.count), mu=leaves(adam.mu), nu=leaves(adam.nu),
+        schedule_count=count(sched[0].count if sched else 0))
+
+
+def train_state_from_numpy(ts, device=None, dtype=None) -> TrainState:
+    """The port's TrainState from a JAX PPO TrainState: params, optimizer
+    state, env state, obs, key (uint32 words as int64) and update_idx."""
+    device = resolve_device(device)
+    return TrainState(
+        params=ppo_params_from_numpy(ts.params, device, dtype),
+        opt_state=opt_state_from_numpy(ts.opt_state, device, dtype),
+        env_state=env_state_from_numpy(ts.env_state, device, dtype),
+        obs=_tensor(ts.obs, device, dtype),
+        key=_tensor(np.asarray(ts.key).astype(np.int64), device),
+        update_idx=_tensor(ts.update_idx, device, torch.int32))

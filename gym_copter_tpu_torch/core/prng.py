@@ -1,12 +1,18 @@
-"""The part of `jax.random` that the env's reset kicks use, on torch tensors.
+"""The part of `jax.random` that the env and the PPO learner use, on torch
+tensors.
 
 The JAX package draws each env's reset wind kick as
 `uniform(fold_in(fold_in(PRNGKey(seed), env_id), episode), (3,), -F, F)`
-(envs/base.py `_initial_forces`).  This module reproduces those bits:
-threefry2x32 with JAX's key schedule and rotations, `fold_in`, and
-`uniform` in the partitionable counter layout (`jax_threefry_partitionable`,
-the default), for float32 (32 random bits) and float64 (64 random bits, as
-JAX draws them with x64 on).
+(envs/base.py `_initial_forces`), and its PPO learner splits keys, draws
+Gaussian exploration noise and permutes minibatch blocks (learn/ppo.py).
+This module reproduces those bits: threefry2x32 with JAX's key schedule and
+rotations, `fold_in`, `split`, `random_bits`, `uniform`, `normal` and
+`permutation` in the partitionable counter layout
+(`jax_threefry_partitionable`, the default), for float32 (32 random bits)
+and float64 (64 random bits, as JAX draws them with x64 on).  Every draw is
+bit-equal to JAX's except `normal`, whose `torch.erfinv` differs from XLA's
+polynomial by 1 ULP at the median and by up to some hundreds of ULP in the
+far tails.
 
 torch has no uint32 arithmetic, and its int32 `>>` is arithmetic, so the
 words are held in int64 tensors and every sum is masked with 0xFFFFFFFF.
@@ -16,6 +22,9 @@ of shape (..., 2); all functions broadcast over the leading dimensions.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from gym_copter_tpu_torch.core.device import resolve_device
@@ -63,6 +72,42 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([o0, o1], dim=-1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`jax.random.split(key, num)` for one key (2,): key i is the threefry
+    of the counter pair (0, i), so `split(key, n)[i] == fold_in(key, i)`.
+    Returns (num, 2)."""
+    counts = torch.arange(num, dtype=torch.int64, device=key.device)
+    o0, o1 = threefry2x32(key[0], key[1], torch.zeros_like(counts), counts)
+    return torch.stack([o0, o1], dim=-1)
+
+
+def _words(key: torch.Tensor, shape) -> tuple:
+    """The two threefry words of the counters 0 .. prod(shape) - 1 under one
+    key (2,), each of `shape`."""
+    counts = torch.arange(math.prod(shape), dtype=torch.int64,
+                          device=key.device).reshape(shape)
+    return threefry2x32(key[0], key[1], torch.zeros_like(counts), counts)
+
+
+def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.random.bits(key, shape, uint32)`: int64 values in [0, 2**32)."""
+    b1, b2 = _words(key, shape)
+    return b1 ^ b2
+
+
+def _unit_floats(b1, b2, dtype):
+    """Floats in [1, 2) from the two threefry words, as `jax.random.uniform`
+    makes them: the mantissa is the top bits of the 32-bit draw b1 ^ b2
+    (float32) or of the 64-bit draw (b1 << 32) | b2 (float64)."""
+    if dtype == torch.float32:
+        bits = ((b1 ^ b2) >> 9) | 0x3F800000
+        return bits.to(torch.int32).view(torch.float32)
+    if dtype == torch.float64:
+        bits = (b1 << 20) | (b2 >> 12) | 0x3FF0000000000000
+        return bits.view(torch.float64)
+    raise TypeError(f'draws support float32 and float64, not {dtype}')
+
+
 def uniform(key: torch.Tensor, n: int, minval: float, maxval: float,
             dtype=torch.float32) -> torch.Tensor:
     """`jax.random.uniform(key, (n,), dtype, minval, maxval)` for symmetric
@@ -80,16 +125,44 @@ def uniform(key: torch.Tensor, n: int, minval: float, maxval: float,
     counts = torch.arange(n, dtype=torch.int64, device=key.device)
     b1, b2 = threefry2x32(key[..., 0:1], key[..., 1:2],
                           torch.zeros_like(counts), counts)
-    if dtype == torch.float32:
-        # 23 mantissa bits of the 32-bit draw b1 ^ b2, exponent of 1.0
-        bits = ((b1 ^ b2) >> 9) | 0x3F800000
-        floats = bits.to(torch.int32).view(torch.float32)
-    elif dtype == torch.float64:
-        # top 52 bits of the 64-bit draw (b1 << 32) | b2
-        bits = (b1 << 20) | (b2 >> 12) | 0x3FF0000000000000
-        floats = bits.view(torch.float64)
-    else:
-        raise TypeError(f'uniform supports float32 and float64, not {dtype}')
+    floats = _unit_floats(b1, b2, dtype)
     hi = torch.full((), maxval, dtype=dtype, device=key.device)
     # floats - 1 is f; f * 2 - 1 is exact, so only the multiply rounds
     return torch.maximum(-hi, hi * ((floats - 1.0) * 2.0 - 1.0))
+
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def normal(key: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
+    """`jax.random.normal(key, shape, dtype)` for one key (2,):
+    sqrt(2) * erfinv(u), u uniform on [nextafter(-1, 0), 1).
+
+    JAX computes u = f * (1 - lo) + lo; 1 - lo rounds to 2.0, so u is
+    2f + lo with 2f exact: one rounding with an FMA or without, and u is
+    bit-equal.  `torch.erfinv` and XLA's erf_inv polynomial differ by 1 ULP
+    at the median, more in the far tails (tests/test_torch_prng.py states
+    the measured gap)."""
+    np_dtype = _NP_DTYPES[dtype]
+    lo = float(np.nextafter(np_dtype(-1.0), np_dtype(0.0)))
+    b1, b2 = _words(key, shape)
+    u = (_unit_floats(b1, b2, dtype) - 1.0) * 2.0 + lo
+    u = torch.maximum(u, torch.full((), lo, dtype=dtype, device=key.device))
+    return torch.erfinv(u) * math.sqrt(2.0)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.permutation(key, n)` for an int n (`jax._src.random.
+    _shuffle`): ceil(3 ln n / ln(2**32 - 1)) rounds, each a split, 32 random
+    bits per element and a stable sort of the elements by those bits (2
+    rounds for n in (1625, 2**21]).  JAX's `sort_key_val` is stable too, so
+    the two agree on ties (equal keys keep their order) as everywhere else.
+    Returns an int64 tensor (n,)."""
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x

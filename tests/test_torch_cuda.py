@@ -22,7 +22,10 @@ from gym_copter_tpu_torch.core import vehicles
 from gym_copter_tpu_torch.envs import tasks
 from gym_copter_tpu_torch.envs.registry import CopterEnv
 from gym_copter_tpu_torch.ops import fused_rollout as fr
-from torch_cuda_cases import compare, reset_state, run_kernel, scenarios
+from gym_copter_tpu_torch.core import prng
+from gym_copter_tpu_torch.learn import ppo
+from torch_cuda_cases import (compare, reset_state, run_kernel, scenarios,
+                              state_diff, state_tensors, train_state_to)
 
 SCENARIOS = scenarios()
 _plain = {}
@@ -106,3 +109,91 @@ def test_handle_launches_the_kernel_for_any_batch():
     with pytest.raises(ValueError, match='fused-kernel family'):
         bogus.fused_rollout(state, torch.zeros((4, 128), device=device), 10)
     assert fr.fused_rollout.launches == launches + 1
+
+
+def _small_step(device, spec_name='Lander3D-v0', num_envs=256, **kw):
+    cfg = ppo.PPOConfig(**{**dict(rollout_steps=16, hidden=16, minibatches=4,
+                                  epochs=2, target_kl=0.015), **kw})
+    env = gt.make(spec_name, num_envs=num_envs, device=device)
+    step, opt = ppo.make_train_step(env.params, env.spec, cfg,
+                                    prng.PRNGKey(1, device), env.env_ids)
+    ts = ppo.init_train_state(prng.PRNGKey(0, device), env.params,
+                              env.spec, cfg, num_envs, opt)
+    return env, step, ts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('steps_per_graph', [1, 4, 16])
+def test_graphed_train_step_equals_eager(steps_per_graph):
+    """Two train steps through the CUDA graphs (the rollout in 1-, 4- and
+    16-step graphs, the last the whole rollout) against the eager path
+    from the same state: every tensor of the train state and every metric
+    equal."""
+    device = _card()
+    env, step, ts = _small_step(device)
+    step.steps_per_graph = steps_per_graph
+    g, e = ts, ts
+    for i in range(2):
+        g, mg = step(g)
+        e, me = step.eager(e)
+        assert state_diff(g, e, f'step {i}') == 0.0
+        for k in mg:
+            assert torch.equal(mg[k], me[k]), k
+    assert set(step.graphs) == {'rollout', 'gae', 'update'}
+    assert int(g.update_idx) == 2
+
+
+@pytest.mark.cuda
+def test_card_train_step_matches_cpu_float32():
+    """One float32 train step (Hover3D, 16 envs, the configuration of
+    test_ppo.py's _one_update_params) on the card against the CPU: every
+    float tensor to rtol 1e-4 (atol 1e-6 of its largest element), every
+    integer tensor equal."""
+    device = _card()
+    cpu = torch.device('cpu')
+    kw = dict(rollout_steps=8, hidden=16, minibatches=2, epochs=4,
+              learning_rate=1e-2, anneal_lr=False, target_kl=1e9)
+    _, s_cpu, ts = _small_step(cpu, 'Hover3D-v0', 16, **kw)
+    _, s_gpu, _ = _small_step(device, 'Hover3D-v0', 16, **kw)
+    want, _ = s_cpu(ts)
+    got, _ = s_gpu(train_state_to(ts, device))
+    for a, b in zip(state_tensors(got), state_tensors(want)):
+        a = a.cpu()
+        if a.is_floating_point():
+            scale = float(b.abs().max()) or 1.0
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * scale)
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graphed_eval_equals_eager():
+    """The evaluation in 1-, 10- and 200-step graphs (the last the whole
+    loop) against the eager loop: per-env returns equal."""
+    device = _card()
+    env, step, ts = _small_step(device, num_envs=64)
+    want = ppo.make_eval_fn(env.params, env.spec, step.cfg, num_envs=64,
+                            num_steps=200)(ts.params, graphed=False)[1]
+    for k in (1, 10, 200):
+        ev = ppo.make_eval_fn(env.params, env.spec, step.cfg, num_envs=64,
+                              num_steps=200, steps_per_graph=k)
+        for _ in range(2):
+            assert torch.equal(ev(ts.params)[1], want)
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises():
+    """A phase that reads a value back to the host cannot be captured: the
+    graphed step raises and does not fall back to the eager path.  (Last
+    in the file: a failed capture leaves nothing that later tests use.)"""
+    device = _card()
+    env, step, ts = _small_step(device, num_envs=64)
+    advantages = step.advantages
+
+    def syncing(*args):
+        flat, stats = advantages(*args)
+        return flat, stats * float(stats[0])
+
+    step.advantages = syncing
+    with pytest.raises(RuntimeError):
+        step(ts)

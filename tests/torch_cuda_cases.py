@@ -109,3 +109,43 @@ def scenarios():
         ('lander3dmars-blade', tasks.LANDER_3D, mars, [0.2] * 4, 150, None,
          7, 128),
     ]
+
+
+def train_state_to(ts, device):
+    """A PPO TrainState with every tensor copied to `device`."""
+    from gym_copter_tpu_torch.learn import ppo
+
+    def move(tree):
+        return ppo._map(lambda t: t.to(device), tree)
+
+    return ts._replace(
+        params=ppo.ActorCritic.from_leaves(move(ts.params.leaves())),
+        opt_state=move(ts.opt_state), env_state=move(ts.env_state),
+        obs=ts.obs.to(device), key=ts.key.to(device),
+        update_idx=ts.update_idx.to(device))
+
+
+def state_tensors(ts):
+    """Every tensor of a PPO TrainState, params first, in a fixed order."""
+    from gym_copter_tpu_torch.learn import ppo
+
+    out = []
+    ppo._map(out.append, (ts.params.leaves(), ts.opt_state, ts.env_state,
+                          ts.obs, ts.key, ts.update_idx))
+    return out
+
+
+def state_diff(a, b, what):
+    """The largest absolute difference between two PPO TrainStates' float
+    tensors (0.0 when bit-equal); raises where an integer or bool tensor
+    differs or a float is not finite."""
+    err = 0.0
+    for i, (x, y) in enumerate(zip(state_tensors(a), state_tensors(b))):
+        x, y = x.cpu(), y.cpu()
+        if x.is_floating_point():
+            if not (torch.isfinite(x).all() and torch.isfinite(y).all()):
+                raise AssertionError(f'{what}: tensor {i} is not finite')
+            err = max(err, float((x - y).abs().max()))
+        elif not torch.equal(x, y):
+            raise AssertionError(f'{what}: integer tensor {i} differs')
+    return err
