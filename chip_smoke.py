@@ -30,9 +30,9 @@ Phases, each printed before the last line:
      updates at the recorded recipe; 3 graphed train steps held bit for bit
      against the eager steps from the same state; one small float32 step on
      the card against the CPU; device ms per phase (rollout, GAE, update),
-     eager and graphed, and env-steps/s of training; the rollout and the
-     evaluation in graphs of other lengths; operations and CUDA graph nodes
-     per env step; one {"ppo": ...} JSON line;
+     eager and graphed, and env-steps/s of training; operations and CUDA
+     graph nodes per env step; the graphed evaluation's time, and a short
+     one against its eager loop; one {"ppo": ...} JSON line;
   6. times with CUDA events after warm-up: the kernel's device time at the
      main path's shape, with the wrapper's host time apart; the kernel at
      1024, 4096, 8192, 12,288, 16,384 and 65,536 envs at every lanes-per-env
@@ -661,28 +661,10 @@ def ppo_phase():
             f'per train step on the host clock = '
             f'{per_step / t["step_s"]:.4g} env-steps/s of training')
 
-    # 5. the rollout graphed in chunks of 8 steps and as one 128-step
-    # graph, against the default 1-step graph
+    # 5. launches and graph nodes per env step
     leaves = g.params.leaves()
-    r_whole = ppo._map(torch.clone, step._graphed_rollout(
+    r = ppo._map(torch.clone, step._graphed_rollout(
         leaves, g.env_state, g.obs, g.key))
-    out['rollout_ms_by_steps_per_graph'] = {
-        step.steps_per_graph: out['graphed']['rollout_ms']}
-    for k in (8, cfg.rollout_steps):
-        chunked = ppo.TrainStep(env.params, env.spec, step.cfg,
-                                step.base_key, env.env_ids, opt,
-                                steps_per_graph=k)
-        r = chunked._graphed_rollout(leaves, g.env_state, g.obs, g.key)
-        if not all(torch.equal(x, y) for x, y in zip(_flat(r_whole),
-                                                      _flat(r))):
-            raise AssertionError(f'the rollout in {k}-step graphs differs')
-        out['rollout_ms_by_steps_per_graph'][k] = _ppo_times(
-            chunked, g, True, 3)['rollout_ms']
-    log(f'[ppo] graphed rollout ms by env steps per graph (replayed '
-        f'128 / that times; bit-equal to the default): '
-        f'{out["rollout_ms_by_steps_per_graph"]}')
-
-    # 6. launches and graph nodes per env step
     es, obs, key = g.env_state, g.obs, g.key
     action = torch.full((4, MAIN_B), 1.625e-2, device=env.device)
     with _OpCounter() as c_env:
@@ -695,9 +677,8 @@ def ppo_phase():
         lambda *a: step.rollout(*a, 1), (leaves, es, obs, key), 1)
     out['nodes_per_env_step'] = _graph_nodes(
         lambda st: env.step(st, action), (es,), 1)
-    flat, _ = step.advantages(leaves, r_whole[3], r_whole[1])
-    out['nodes_gae'] = _graph_nodes(step.advantages,
-                                    (leaves, r_whole[3], r_whole[1]), 1)
+    flat, _ = step.advantages(leaves, r[3], r[1])
+    out['nodes_gae'] = _graph_nodes(step.advantages, (leaves, r[3], r[1]), 1)
     out['nodes_update'] = _graph_nodes(
         step.update, (leaves, g.opt_state, key, flat), 3)
     log(f'[ppo] ATen operations per env.step {c_env.n}, per policy + env '
@@ -706,43 +687,26 @@ def ppo_phase():
         f'{out["nodes_per_policy_env_step"]}, GAE graph '
         f'{out["nodes_gae"]}, update graph {out["nodes_update"]}')
 
-    # 7. the evaluation: graphed (in the default 1-step graph, in 111-step
-    # graphs and as one 999-step graph) against eager, 1024 envs x 999
-    # steps
-    spec = env.spec
-    evaluate = ppo.make_eval_fn(env.params, spec, cfg)
+    # 6. the graphed evaluation at full size (1024 envs x 999 steps), and
+    # a short one against its eager loop
+    evaluate = ppo.make_eval_fn(env.params, env.spec, cfg)
     t0 = time.perf_counter()
     mean, total = evaluate(g.params)
     torch.cuda.synchronize()
     out['eval_capture_s'] = time.perf_counter() - t0
     out['eval_ms'] = _event_ms(lambda: evaluate(g.params), 3)[0]
-    t0 = time.perf_counter()
-    e_mean, e_total = evaluate(g.params, graphed=False)
-    torch.cuda.synchronize()
-    out['eval_eager_ms'] = (time.perf_counter() - t0) * 1e3
-    if not torch.equal(total, e_total) or not math.isfinite(float(mean)):
+    if total.shape != (ppo.EVAL_NUM_ENVS,) or not bool(
+            torch.isfinite(total).all()):
+        raise AssertionError(f'evaluation returns {total}')
+    short = ppo.make_eval_fn(env.params, env.spec, cfg, num_envs=64,
+                             num_steps=100)
+    if not torch.equal(short(g.params)[1],
+                       short(g.params, graphed=False)[1]):
         raise AssertionError('graphed and eager evaluations differ')
-    for k in (111, 999):
-        ev = ppo.make_eval_fn(env.params, spec, cfg, steps_per_graph=k)
-        if not torch.equal(ev(g.params)[1], total):
-            raise AssertionError(f'evaluation in {k}-step graphs differs')
-        out[f'eval_ms_{k}_step_graphs'] = _event_ms(lambda: ev(g.params),
-                                                    3)[0]
-    log(f'[ppo] evaluation (1024 envs x 999 steps): graphed '
-        f'{out["eval_ms"]:.1f} ms in a 1-step graph (the first call '
-        f'captured it in {out["eval_capture_s"]:.1f} s), in 111-step graphs '
-        f'{out["eval_ms_111_step_graphs"]:.1f} ms, as one 999-step graph '
-        f'{out["eval_ms_999_step_graphs"]:.1f} ms, eager '
-        f'{out["eval_eager_ms"]:.1f} ms; bit-equal; mean return '
-        f'{float(mean):.3f}')
-    return out
-
-
-def _flat(tree):
-    from gym_copter_tpu_torch.learn import ppo
-
-    out = []
-    ppo._map(out.append, tree)
+    log(f'[ppo] evaluation (1024 envs x 999 steps, a 1-step graph replayed '
+        f'999 times): {out["eval_ms"]:.1f} ms graphed (the first call '
+        f'captured it in {out["eval_capture_s"]:.1f} s); mean return '
+        f'{float(mean):.3f}; 64 envs x 100 steps graphed = eager, bit-equal')
     return out
 
 

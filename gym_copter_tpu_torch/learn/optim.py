@@ -51,10 +51,7 @@ def linear_schedule(init_value: float, end_value: float,
                     transition_steps: int) -> Callable:
     """`optax.linear_schedule`: count -> init + (end - init) * min(count,
     steps) / steps as a float32 tensor (optax divides the int32 count into
-    float32, with x64 on as well); constant when steps <= 0."""
-    if transition_steps <= 0:
-        return lambda count: init_value
-
+    float32, with x64 on as well); steps > 0."""
     def schedule(count):
         frac = 1 - div(torch.clamp(count, 0, transition_steps).to(
             torch.float32), transition_steps)

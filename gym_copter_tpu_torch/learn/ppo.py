@@ -257,27 +257,34 @@ def _map(fn, *trees):
 
 
 class _Graph:
-    """`fn` captured as one CUDA graph.  The inputs are copied into static
-    buffers (skipped for a buffer passed back as itself), the graph replays,
-    and the static outputs are returned: a caller that keeps them past the
-    next replay clones them.  Warm-up runs on a side stream before the
-    capture, as torch's whole-network capture example does; it also fills
-    the constant caches (`base._const`), since a copy from the host cannot
-    be captured."""
+    """`fn` as one CUDA graph, captured at the first call.  The inputs are
+    copied into static buffers (skipped for a buffer passed back as itself),
+    the graph replays, and the static outputs are returned: a caller that
+    keeps them past the next replay clones them.  Warm-up runs on a side
+    stream before the capture, as torch's whole-network capture example
+    does; it also fills the constant caches (`base._const`), since a copy
+    from the host cannot be captured."""
 
-    def __init__(self, fn: Callable, inputs, warmup: int):
+    def __init__(self, fn: Callable, warmup: int):
+        self.fn, self.warmup = fn, warmup
+        self.graph = None
+
+    def _capture(self, inputs):
         self.inputs = _map(torch.clone, inputs)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            for _ in range(warmup):
-                fn(*self.inputs)
+            for _ in range(self.warmup):
+                self.fn(*self.inputs)
         torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.outputs = fn(*self.inputs)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.outputs = self.fn(*self.inputs)
+        self.graph = graph
 
     def __call__(self, *inputs):
+        if self.graph is None:
+            self._capture(inputs)
         _map(lambda s, x: None if s is x else s.copy_(x), self.inputs,
              inputs)
         self.graph.replay()
@@ -290,24 +297,20 @@ class TrainStep:
     metrics)`, graphed on the card, eager on the CPU; `step.eager(ts)`
     is the eager path anywhere.  Neither modifies `ts`.
 
-    steps_per_graph: env steps per captured rollout graph (a divisor of
-    cfg.rollout_steps), replayed rollout_steps / that times.  The default,
-    a one-step graph replayed T times, measured faster on the H100 than
-    the whole 128-step rollout as one graph (PERF.md)."""
+    The rollout is graphed as one policy + env step replayed T times,
+    which measured faster on the H100 than the whole T-step rollout as one
+    graph (PERF.md)."""
 
     def __init__(self, env_params: EnvParams, spec: TaskSpec,
-                 cfg: PPOConfig, base_key, env_ids, optimizer,
-                 steps_per_graph: int = 1):
+                 cfg: PPOConfig, base_key, env_ids, optimizer):
         self.env_params, self.spec, self.cfg = env_params, spec, cfg
         self.base_key, self.env_ids = base_key, env_ids
         self.optimizer = optimizer
         self.hover = hover_motor_value(env_params)
-        self.steps_per_graph = steps_per_graph
-        if cfg.rollout_steps % self.steps_per_graph:
-            raise ValueError(
-                f'steps_per_graph {self.steps_per_graph} does not divide '
-                f'rollout_steps {cfg.rollout_steps}')
-        self.graphs = {}
+        # the lambdas read the phase methods at capture time
+        self.rollout_graph = _Graph(lambda *a: self.rollout(*a, 1), warmup=1)
+        self.gae_graph = _Graph(lambda *a: self.advantages(*a), warmup=1)
+        self.update_graph = _Graph(lambda *a: self.update(*a), warmup=3)
 
     # -- the three phases, as pure functions of tensors -------------------
 
@@ -435,25 +438,19 @@ class TrainStep:
     def eager(self, ts: TrainState):
         return self.run(ts, graphed=False)
 
-    def graph(self, name: str, fn: Callable, inputs, warmup: int = 1):
-        """The captured graph `name`, capturing it on first use."""
-        if name not in self.graphs:
-            self.graphs[name] = _Graph(fn, inputs, warmup)
-        return self.graphs[name]
-
     def _graphed_rollout(self, leaves, env_state, obs, key):
-        k, t = self.steps_per_graph, self.cfg.rollout_steps
-        g = self.graph('rollout', lambda *a: self.rollout(*a, k),
-                       (leaves, env_state, obs, key))
+        """The one-step rollout graph replayed T times into one
+        trajectory."""
+        g, t_len = self.rollout_graph, self.cfg.rollout_steps
         traj = None
-        for c in range(t // k):
-            env_state, obs, key, chunk = g(leaves, env_state, obs, key)
+        for t in range(t_len):
+            env_state, obs, key, one = g(leaves, env_state, obs, key)
             leaves = g.inputs[0]
             if traj is None:
-                traj = Transition(*(x.new_empty((t,) + x.shape[1:])
-                                    for x in chunk))
-            for buf, x in zip(traj, chunk):
-                buf[c * k:(c + 1) * k].copy_(x)
+                traj = Transition(*(x.new_empty((t_len,) + x.shape[1:])
+                                    for x in one))
+            for buf, x in zip(traj, one):
+                buf[t].copy_(x[0])
         return env_state, obs, key, traj
 
     def run(self, ts: TrainState, graphed: bool, marks=None):
@@ -475,15 +472,10 @@ class TrainStep:
             env_state, obs, key, traj = self.rollout(
                 leaves, ts.env_state, ts.obs, ts.key, self.cfg.rollout_steps)
         mark()
-        adv_fn = self.advantages
-        if graphed:
-            adv_fn = self.graph('gae', adv_fn, (leaves, traj, obs))
+        adv_fn = self.gae_graph if graphed else self.advantages
         flat, stats = adv_fn(leaves, traj, obs)
         mark()
-        upd_fn = self.update
-        if graphed:
-            upd_fn = self.graph('update', upd_fn,
-                                (leaves, ts.opt_state, key, flat), warmup=3)
+        upd_fn = self.update_graph if graphed else self.update
         leaves, opt_state, key, aux = upd_fn(leaves, ts.opt_state, key, flat)
         mark()
         metrics = torch.cat([stats, aux.to(stats.dtype)])
@@ -498,8 +490,7 @@ class TrainStep:
 
 
 def make_train_step(env_params: EnvParams, spec: TaskSpec, cfg: PPOConfig,
-                    base_key, env_ids, optimizer=None,
-                    steps_per_graph: int = 1):
+                    base_key, env_ids, optimizer=None):
     """The PPO train step over the envs `env_ids` (auto-resets keyed by
     `base_key`), on their device: `(train_step, optimizer)`.  optimizer
     defaults to clip_by_global_norm(cfg.max_grad_norm) then Adam at
@@ -507,8 +498,8 @@ def make_train_step(env_params: EnvParams, spec: TaskSpec, cfg: PPOConfig,
     cfg = resolve_minibatches(cfg, int(env_ids.shape[0]))
     if optimizer is None:
         optimizer = optim.ClipAdam(cfg.max_grad_norm, cfg.learning_rate)
-    return TrainStep(env_params, spec, cfg, base_key, env_ids, optimizer,
-                     steps_per_graph), optimizer
+    return TrainStep(env_params, spec, cfg, base_key, env_ids,
+                     optimizer), optimizer
 
 
 def init_train_state(key, env_params: EnvParams, spec: TaskSpec,
@@ -540,77 +531,58 @@ def init_train_state(key, env_params: EnvParams, spec: TaskSpec,
 EVAL_NUM_ENVS = 1024
 
 
-class Evaluator:
-    """`make_eval_fn`'s evaluation: `evaluate(params) -> (mean return,
-    per-env returns)`, graphed on the card as the train step's rollout is,
-    a graph of `steps_per_graph` steps replayed num_steps / that times."""
+def make_eval_fn(env_params: EnvParams, spec: TaskSpec, cfg: PPOConfig,
+                 num_envs: int = EVAL_NUM_ENVS, num_steps: int = 999,
+                 seed: int = 1000, device=None) -> Callable:
+    """Deterministic-policy evaluation: fresh episodes (key PRNGKey(seed),
+    episode 0), mean actions, each env's return summed up to its first
+    done, averaged over the batch — the learning-curve metric.
 
-    def __init__(self, env_params: EnvParams, spec: TaskSpec, cfg: PPOConfig,
-                 num_envs: int, num_steps: int, seed: int, device,
-                 steps_per_graph: int = 1):
-        self.env_params, self.spec, self.cfg = env_params, spec, cfg
-        self.num_steps = num_steps
-        self.steps_per_graph = steps_per_graph
-        if num_steps % self.steps_per_graph:
-            raise ValueError(
-                f'steps_per_graph {self.steps_per_graph} does not divide '
-                f'num_steps {num_steps}')
-        self.hover = hover_motor_value(env_params)
-        device = resolve_device(device)
-        self.base_key = prng.PRNGKey(seed, device)
-        self.env_ids = torch.arange(num_envs, dtype=torch.int32,
-                                    device=device)
-        env_state, obs = base.reset(
-            self.base_key, self.env_ids,
-            torch.zeros(num_envs, dtype=torch.int32, device=device),
-            env_params, spec)
-        self.start = (env_state, obs,
-                      torch.zeros(num_envs, dtype=torch.float32,
-                                  device=device),
-                      torch.zeros(num_envs, dtype=torch.bool, device=device))
-        self.graph = None
+    Returns `evaluate(params, graphed=None) -> (mean return, per-env
+    returns)`.  Graphed (the default for params on the card), it replays a
+    one-step CUDA graph num_steps times, as the train step's rollout does;
+    `graphed=False` runs the same steps eagerly."""
+    hover = hover_motor_value(env_params)
+    device = resolve_device(device)
+    base_key = prng.PRNGKey(seed, device)
+    env_ids = torch.arange(num_envs, dtype=torch.int32, device=device)
+    env_state, obs = base.reset(
+        base_key, env_ids,
+        torch.zeros(num_envs, dtype=torch.int32, device=device),
+        env_params, spec)
+    start = (env_state, obs,
+             torch.zeros(num_envs, dtype=torch.float32, device=device),
+             torch.zeros(num_envs, dtype=torch.bool, device=device))
 
-    def steps(self, leaves, env_state, obs, total, done_seen, num_steps):
-        """num_steps steps under the mean action; returns the carry."""
+    def steps(leaves, env_state, obs, total, done_seen, n=1):
+        """n steps under the mean action; returns the carry."""
         with torch.no_grad():
-            for _ in range(num_steps):
-                mean, _, _ = _policy(leaves, obs, self.cfg)
-                env_state, ts = base.step(env_state, self.hover * (1.0 + mean),
-                                          self.base_key, self.env_ids,
-                                          self.env_params, self.spec)
+            for _ in range(n):
+                mean, _, _ = _policy(leaves, obs, cfg)
+                env_state, ts = base.step(env_state, hover * (1.0 + mean),
+                                          base_key, env_ids, env_params, spec)
                 total = total + torch.where(done_seen, 0.0, ts.reward)
                 done_seen = done_seen | ts.done
                 obs = ts.obs
         return env_state, obs, total, done_seen
 
-    def __call__(self, params: ActorCritic, graphed: Optional[bool] = None):
+    graph = _Graph(steps, warmup=1)
+
+    def evaluate(params: ActorCritic, graphed: Optional[bool] = None):
         leaves = params.leaves()
         if graphed is None:
             graphed = leaves[0].is_cuda
         if not graphed:
-            total = self.steps(leaves, *self.start, self.num_steps)[2]
+            total = steps(leaves, *start, num_steps)[2]
             return total.mean(), total
-        k = self.steps_per_graph
-        if self.graph is None:
-            self.graph = _Graph(lambda *a: self.steps(*a, k),
-                                (leaves, *self.start), warmup=1)
-        carry = self.start
-        for _ in range(self.num_steps // k):
-            carry = self.graph(leaves, *carry)
-            leaves = self.graph.inputs[0]
+        carry = start
+        for _ in range(num_steps):
+            carry = graph(leaves, *carry)
+            leaves = graph.inputs[0]
         total = carry[2].clone()
         return total.mean(), total
 
-
-def make_eval_fn(env_params: EnvParams, spec: TaskSpec, cfg: PPOConfig,
-                 num_envs: int = EVAL_NUM_ENVS, num_steps: int = 999,
-                 seed: int = 1000, device=None,
-                 steps_per_graph: int = 1) -> Evaluator:
-    """Deterministic-policy evaluation: fresh episodes (key PRNGKey(seed),
-    episode 0), mean actions, each env's return summed up to its first
-    done, averaged over the batch — the learning-curve metric."""
-    return Evaluator(env_params, spec, cfg, num_envs, num_steps, seed,
-                     device, steps_per_graph)
+    return evaluate
 
 
 def train(env_name: str = 'Hover3D-v0', num_envs: int = 1024,

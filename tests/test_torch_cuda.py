@@ -123,15 +123,12 @@ def _small_step(device, spec_name='Lander3D-v0', num_envs=256, **kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('steps_per_graph', [1, 4, 16])
-def test_graphed_train_step_equals_eager(steps_per_graph):
-    """Two train steps through the CUDA graphs (the rollout in 1-, 4- and
-    16-step graphs, the last the whole rollout) against the eager path
-    from the same state: every tensor of the train state and every metric
-    equal."""
+def test_graphed_train_step_equals_eager():
+    """Two train steps through the CUDA graphs (the rollout as a 1-step
+    graph replayed 16 times) against the eager path from the same state:
+    every tensor of the train state and every metric equal."""
     device = _card()
     env, step, ts = _small_step(device)
-    step.steps_per_graph = steps_per_graph
     g, e = ts, ts
     for i in range(2):
         g, mg = step(g)
@@ -139,7 +136,8 @@ def test_graphed_train_step_equals_eager(steps_per_graph):
         assert state_diff(g, e, f'step {i}') == 0.0
         for k in mg:
             assert torch.equal(mg[k], me[k]), k
-    assert set(step.graphs) == {'rollout', 'gae', 'update'}
+    for graph in (step.rollout_graph, step.gae_graph, step.update_graph):
+        assert graph.graph is not None
     assert int(g.update_idx) == 2
 
 
@@ -168,17 +166,15 @@ def test_card_train_step_matches_cpu_float32():
 
 @pytest.mark.cuda
 def test_graphed_eval_equals_eager():
-    """The evaluation in 1-, 10- and 200-step graphs (the last the whole
-    loop) against the eager loop: per-env returns equal."""
+    """The evaluation through its 1-step graph, twice, against the eager
+    loop: per-env returns equal."""
     device = _card()
     env, step, ts = _small_step(device, num_envs=64)
-    want = ppo.make_eval_fn(env.params, env.spec, step.cfg, num_envs=64,
-                            num_steps=200)(ts.params, graphed=False)[1]
-    for k in (1, 10, 200):
-        ev = ppo.make_eval_fn(env.params, env.spec, step.cfg, num_envs=64,
-                              num_steps=200, steps_per_graph=k)
-        for _ in range(2):
-            assert torch.equal(ev(ts.params)[1], want)
+    evaluate = ppo.make_eval_fn(env.params, env.spec, step.cfg, num_envs=64,
+                                num_steps=200)
+    want = evaluate(ts.params, graphed=False)[1]
+    for _ in range(2):
+        assert torch.equal(evaluate(ts.params)[1], want)
 
 
 @pytest.mark.cuda

@@ -430,7 +430,7 @@ def test_minibatches_default_auto_resolves(capsys):
 
 
 def test_rollout_chunks_equal_one_rollout():
-    """The rollout graphed in chunks (steps_per_graph) runs the same
+    """The rollout graphed as a 1-step graph replayed T times runs the same
     operations as one rollout: on the CPU, eight 1-step rollouts chained
     give the one 8-step rollout's bits."""
     step, opt = _step(ppo.PPOConfig(rollout_steps=8, hidden=8),
@@ -446,9 +446,6 @@ def test_rollout_chunks_equal_one_rollout():
     for a, *bs in zip(whole[3], *parts):
         assert torch.equal(a, torch.cat(bs))
     assert torch.equal(whole[1], carry[1]) and torch.equal(whole[2], carry[2])
-    with pytest.raises(ValueError, match='does not divide'):
-        ppo.TrainStep(PARAMS, tasks.LANDER_3D, step.cfg, None, None, opt,
-                      steps_per_graph=3)
 
 
 def test_port_imports_no_jax():
