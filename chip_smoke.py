@@ -33,6 +33,20 @@ Phases, each printed before the last line:
      eager and graphed, and env-steps/s of training; operations and CUDA
      graph nodes per env step; the graphed evaluation's time, and a short
      one against its eager loop; one {"ppo": ...} JSON line;
+  5c. the sharded path ([dist], parallel/): a one-rank NCCL world in this
+     process, whose sharded graphed train step at the recipe is held bit for
+     bit against the unsharded graphed step and timed beside it, and whose
+     sharded fused rollout at 4096 envs x 10,000 steps (launch count set to
+     0 just before) against fused_rollout; then two gloo ranks sharing the
+     card through parallel/launch.py: totals equal to the one-rank layout,
+     parameters equal across ranks after one eager step, the gloo
+     all-reduce's time;
+  5d. [ckpt]: the recipe's TrainState saved and restored (utils/
+     checkpoint.py), ms and bytes, and two graphed steps after the restore
+     held bit for bit against uninterrupted ones;
+  5e. [trace]: a torch.profiler trace of two graphed train steps: the
+     device's busy and idle shares and its top kernels (utils/
+     profiling.py); one {"dist": ..., "ckpt": ..., "trace": ...} line;
   6. times with CUDA events after warm-up: the kernel's device time at the
      main path's shape, with the wrapper's host time apart; the kernel at
      1024, 4096, 8192, 12,288, 16,384 and 65,536 envs at every lanes-per-env
@@ -52,6 +66,10 @@ run).
     python3 chip_smoke.py --ppo-only
 
 runs only phase 1 and the PPO phase.
+
+    python3 chip_smoke.py --dist-only
+
+runs only phase 1 and phases 5b-5e.
 """
 
 import argparse
@@ -549,6 +567,7 @@ def ppo_phase():
     nodes per env step."""
     import gym_copter_tpu_torch as gct
     from gym_copter_tpu_torch.core import prng
+    from gym_copter_tpu_torch.core.tree import tree_map
     from gym_copter_tpu_torch.learn import optim, ppo
     from gym_copter_tpu_torch.ops import fused_rollout as fr
 
@@ -663,7 +682,7 @@ def ppo_phase():
 
     # 5. launches and graph nodes per env step
     leaves = g.params.leaves()
-    r = ppo._map(torch.clone, step._graphed_rollout(
+    r = tree_map(torch.clone, step._graphed_rollout(
         leaves, g.env_state, g.obs, g.key))
     es, obs, key = g.env_state, g.obs, g.key
     action = torch.full((4, MAIN_B), 1.625e-2, device=env.device)
@@ -707,6 +726,193 @@ def ppo_phase():
         f'999 times): {out["eval_ms"]:.1f} ms graphed (the first call '
         f'captured it in {out["eval_capture_s"]:.1f} s); mean return '
         f'{float(mean):.3f}; 64 envs x 100 steps graphed = eager, bit-equal')
+    return out, step, g
+
+
+def dist_phase(plain):
+    """The sharded path ([dist]): a W = 1 NCCL world in this process, whose
+    sharded graphed train step at the recipe is held bit for bit against
+    `plain`, the unsharded graphed step of [ppo] (times of both), and whose
+    sharded fused rollout at 4096 x 10,000 against `fused_rollout`, its
+    launches counted from 0; then two gloo ranks sharing the card
+    (parallel/launch.py)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import gym_copter_tpu_torch as gct
+    from gym_copter_tpu_torch.control.heuristics import MOTORVAL
+    from gym_copter_tpu_torch.core import prng
+    from gym_copter_tpu_torch.learn import ppo
+    from gym_copter_tpu_torch.ops import fused_rollout as fr
+    from gym_copter_tpu_torch.parallel import launch, sharding
+
+    cases = _cases()
+    cfg = ppo.PPOConfig(**PPO_CFG)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        group, device = sharding.init_world('nccl', 0, 1,
+                                            f'file://{tmp}/store')
+        try:
+            env = gct.make('Lander3D-v0', num_envs=MAIN_B, device=device)
+            sharded, _ = ppo.make_train_step(
+                env.params, env.spec, cfg, prng.PRNGKey(1, device),
+                env.env_ids, optimizer=plain.optimizer, group=group)
+            ts0 = ppo.init_train_state(prng.PRNGKey(0, device), env.params,
+                                       env.spec, cfg, MAIN_B,
+                                       plain.optimizer)
+            a, b = ts0, ts0
+            errs = []
+            for i in range(PPO_STEPS):
+                a, ma = plain(a)
+                b, mb = sharded(b)
+                errs.append(max([cases.state_diff(a, b, f'step {i}')]
+                                + [abs(float(ma[k]) - float(mb[k]))
+                                   for k in ma]))
+            out['sharded_vs_unsharded_max_abs'] = errs
+            if max(errs) > PPO_GRAPH_TOL:
+                raise AssertionError(f'sharded W = 1 and unsharded graphed '
+                                     f'steps differ: {errs}')
+            # in turns: unsharded, sharded, sharded, unsharded
+            runs = [(name, _ppo_times(step, a, True, 3)) for name, step in (
+                ('unsharded', plain), ('sharded', sharded),
+                ('sharded', sharded), ('unsharded', plain))]
+            for name in ('unsharded', 'sharded'):
+                out[name] = [t for n, t in runs if n == name]
+            log(f'[dist] W = 1 NCCL, graphed, the recipe at {MAIN_B} envs: '
+                f'{PPO_STEPS} sharded steps equal the unsharded ones bit for '
+                f'bit (max abs {errs}); step on the host clock '
+                + ', '.join(f'{n} {t["step_s"] * 1e3:.2f} ms (rollout '
+                            f'{t["rollout_ms"]:.2f}, GAE {t["gae_ms"]:.2f}, '
+                            f'update {t["update_ms"]:.2f})' for n, t in runs))
+
+            state, _ = env.reset()
+            action = torch.full((4, MAIN_B), MOTORVAL, device=device)
+            fr.fused_rollout.launches = 0
+            final, totals = sharding.sharded_fused_rollout(
+                state, action, MAIN_T, env.params, env.spec, seed=0,
+                env_ids=env.env_ids)
+            totals = sharding.gather_totals(totals, group)
+            torch.cuda.synchronize()
+            out['launches'] = fr.fused_rollout.launches
+            if out['launches'] < 1:
+                raise AssertionError('the sharded path never launched '
+                                     'fused_rollout')
+            want = fr.fused_rollout(state, action, MAIN_T, env.params,
+                                    env.spec, seed=0, env_ids=env.env_ids)
+            cases.compare((final, totals), want, 'sharded vs one rank')
+            out['fused_ms'] = _event_ms(lambda: sharding.sharded_fused_rollout(
+                state, action, MAIN_T, env.params, env.spec, seed=0,
+                env_ids=env.env_ids), 3, hide_host=True)[0]
+            log(f'[dist] sharded fused rollout, W = 1, {MAIN_B} x {MAIN_T}: '
+                f'bit-identical to fused_rollout; {out["launches"]} '
+                f'launch(es) counted from 0; {out["fused_ms"]:.3f} ms of '
+                f'device time')
+        finally:
+            dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    out['gloo'] = launch.run(2, 'gloo', 'cuda', envs_per_rank=MAIN_B // 2,
+                             updates=1, timeout_s=600)
+    out['gloo']['command_s'] = time.perf_counter() - t0
+    g = out['gloo']
+    log(f'[dist] W = 2 gloo ranks sharing the card ({g["global_envs"]} '
+        f'envs, the recipe, one eager step): totals equal the one-rank '
+        f'layout, parameters equal across ranks; step {g["step_s"]:.3f} s; '
+        f'gloo all-reduce of the {g["allreduce_bytes"]} B gradient '
+        f'{g["allreduce_ms"]:.3f} ms (through the host; not a scaling '
+        f'figure); {g["command_s"]:.1f} s with the spawn')
+    return out
+
+
+def ckpt_phase(step, ts):
+    """[ckpt]: save and restore of the recipe's TrainState (utils/
+    checkpoint.py), with ms and bytes; graphed steps after the restore
+    held bit for bit against uninterrupted ones."""
+    import tempfile
+
+    from gym_copter_tpu_torch.utils import checkpoint
+
+    cases = _cases()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f'{tmp}/train_state.npz'
+        t0 = time.perf_counter()
+        checkpoint.save(path, ts, step.optimizer)
+        out['save_ms'] = (time.perf_counter() - t0) * 1e3
+        out['bytes'] = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        restored = checkpoint.restore(path, ts, step.optimizer)
+        torch.cuda.synchronize()
+        out['restore_ms'] = (time.perf_counter() - t0) * 1e3
+    if cases.state_diff(restored, ts, 'restored') != 0:
+        raise AssertionError('the restored state differs')
+    a, b, errs = ts, restored, []
+    for i in range(2):
+        a, ma = step(a)
+        b, mb = step(b)
+        errs.append(max([cases.state_diff(a, b, f'resumed step {i}')]
+                        + [abs(float(ma[k]) - float(mb[k])) for k in ma]))
+    if max(errs) != 0:
+        raise AssertionError(f'resumed steps differ: {errs}')
+    log(f'[ckpt] recipe TrainState ({MAIN_B} envs, hidden 128): '
+        f'{out["bytes"]} bytes, save {out["save_ms"]:.2f} ms, restore '
+        f'{out["restore_ms"]:.2f} ms; 2 graphed steps after the restore '
+        f'equal the uninterrupted ones bit for bit')
+    return out
+
+
+def _kernel_label(name):
+    """A CUDA kernel's name without its template boilerplate: the kernel,
+    and for PyTorch's elementwise kernels the op (its `*_kernel_cuda` or
+    its innermost functor)."""
+    import re
+
+    base = re.match(r'(?:void )?(?:at::native::)?(\w+)', name).group(1)
+    op = re.search(r'(\w+_kernel_cuda\w*)', name)
+    functors = re.findall(r'(\w+Functor\w*)', name)
+    detail = op.group(1) if op else (functors[-1] if functors else '')
+    return f'{base}[{detail}]' if detail else name[:80]
+
+
+def trace_phase(step, ts):
+    """[trace]: a torch.profiler trace of two graphed train steps: the
+    device's busy and idle shares and the top kernels by device time;
+    raises if the trace holds no CUDA kernel.  The profiler slows the
+    host's enqueue, so the same two steps are also timed without it."""
+    import tempfile
+
+    from gym_copter_tpu_torch.utils import profiling
+
+    def two_steps():
+        nonlocal ts
+        for _ in range(2):
+            ts, _ = step(ts)
+        torch.cuda.synchronize()
+
+    two_steps()
+    t0 = time.perf_counter()
+    two_steps()
+    out = {'unprofiled_ms': (time.perf_counter() - t0) * 1e3}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profiling.trace(tmp):
+            two_steps()
+        out['trace_s'] = time.perf_counter() - t0
+        out.update(profiling.device_busy(f'{tmp}/{profiling.TRACE_FILE}',
+                                         top=8))
+    out['top'] = [[_kernel_label(n), t, c] for n, t, c in out['top']]
+    out['busy_share_of_unprofiled'] = out['busy_us'] / 1e3 / out[
+        'unprofiled_ms']
+    log(f'[trace] 2 graphed train steps under torch.profiler: window '
+        f'{out["window_us"] / 1e3:.2f} ms, device busy '
+        f'{out["busy_us"] / 1e3:.2f} ms = {out["busy_share"]:.2%} of it, '
+        f'idle {1 - out["busy_share"]:.2%}; the same steps take '
+        f'{out["unprofiled_ms"]:.2f} ms without the profiler, of which the '
+        f'traced busy time is {out["busy_share_of_unprofiled"]:.2%}; '
+        f'{out["kernels"]} kernels; top by device time: '
+        + '; '.join(f'{n} {t / 1e3:.2f} ms x{c}' for n, t, c in out['top'])
+        + f' ({out["trace_s"]:.1f} s with the profiler)')
     return out
 
 
@@ -716,6 +922,9 @@ def main(argv=None):
                     help='run only the device phase and the timing sweep')
     ap.add_argument('--ppo-only', action='store_true',
                     help='run only the device phase and the PPO phase')
+    ap.add_argument('--dist-only', action='store_true',
+                    help='run only the device, PPO, dist, ckpt and trace '
+                         'phases')
     ap.add_argument('--tree', type=Path, default=None,
                     help='import gym_copter_tpu_torch from this checkout '
                          '(with --sweep-only, to time another version)')
@@ -732,15 +941,26 @@ def main(argv=None):
         log(json.dumps({'sweep': sweep_phase(), 'card': smi}))
         return 0
     if args.ppo_only:
-        log(json.dumps({'ppo': ppo_phase(), 'card': smi}))
+        log(json.dumps({'ppo': ppo_phase()[0], 'card': smi}))
+        return 0
+    if args.dist_only:
+        _, step, ts = ppo_phase()
+        log(json.dumps({'dist': dist_phase(step),
+                        'ckpt': ckpt_phase(step, ts),
+                        'trace': trace_phase(step, ts), 'card': smi}))
         return 0
     device = torch.device('cuda')
     straight = build_phase()
     traps_phase(device)
     parity_err = parity_phase(device)
     launches, main_err, plain_ms, main = main_path_phase()
-    ppo_out = ppo_phase()
+    ppo_out, step, ts = ppo_phase()
     log(json.dumps({'ppo': ppo_out, 'card': smi}))
+    dist_out = dist_phase(step)
+    ckpt_out = ckpt_phase(step, ts)
+    trace_out = trace_phase(step, ts)
+    log(json.dumps({'dist': dist_out, 'ckpt': ckpt_out, 'trace': trace_out,
+                    'card': smi}))
     times = timing_phase(main, straight, max_mhz)
     log(f'[time] card: {smi}')
     log(json.dumps({'timings': times, 'card': smi}))
@@ -750,6 +970,9 @@ def main(argv=None):
         'source': 'gym_copter_tpu_torch/ops/csrc/fused_rollout.cu',
         'replaces': 'gym_copter_tpu/ops/pallas_rollout.py:426',
         'launches': launches['fused_rollout'],
+        'launches_by_path': {'main': launches['fused_rollout'],
+                             'ppo': ppo_out['launches']['fused_rollout'],
+                             'dist': dist_out['launches']},
         'lanes': times['lanes'],
         'bit_exact': True,
         'max_abs_err': max(parity_err, main_err),

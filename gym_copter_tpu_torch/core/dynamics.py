@@ -177,3 +177,71 @@ def perturb(state: DynamicsState, force: torch.Tensor,
     """Queue a force perturbation (reference :227-229), stored as force / M
     and consumed by the next step."""
     return state._replace(perturb=div(force.to(state.x.dtype), vp.M))
+
+
+# The frame-conversion and accessor API of the reference's Dynamics class
+# (:199-221, :304-337), which its own env flow never calls: batched, each
+# angle () or (B,), each vector (3,) or (3, B).
+
+
+def _sincos(phi, theta, psi):
+    """cos and sin of the three Euler angles (reference `_sincos`,
+    :339-350)."""
+    return (torch.cos(phi), torch.cos(theta), torch.cos(psi),
+            torch.sin(phi), torch.sin(theta), torch.sin(psi))
+
+
+def inertial_to_body(inertial, phi, theta, psi):
+    """An inertial-frame vector in the body frame (reference
+    `_inertialToBody`, :304-312)."""
+    cph, cth, cps, sph, sth, sps = _sincos(phi, theta, psi)
+    ix, iy, iz = inertial[0], inertial[1], inertial[2]
+    bx = cps * cth * ix + cth * sps * iy - sth * iz
+    by = ((cps * sph * sth - cph * sps) * ix
+          + (cph * cps + sph * sps * sth) * iy + cth * sph * iz)
+    bz = ((sph * sps + cph * cps * sth) * ix
+          + (cph * sps * sth - cps * sph) * iy + cph * cth * iz)
+    return torch.stack([bx, by, bz])
+
+
+def body_to_inertial(body, phi, theta, psi):
+    """A body-frame vector in the inertial frame, the transpose of
+    `inertial_to_body` (reference `_bodyToInertial`, :314-328)."""
+    cph, cth, cps, sph, sth, sps = _sincos(phi, theta, psi)
+    bx, by, bz = body[0], body[1], body[2]
+    ix = (cps * cth * bx + (cps * sph * sth - cph * sps) * by
+          + (sph * sps + cph * cps * sth) * bz)
+    iy = (cth * sps * bx + (cph * cps + sph * sps * sth) * by
+          + (cph * sps * sth - cps * sph) * bz)
+    iz = -sth * bx + cth * sph * by + cph * cth * bz
+    return torch.stack([ix, iy, iz])
+
+
+def euler_to_quaternion(phi, theta, psi):
+    """Euler angles as a quaternion (w, x, y, z), (4,) or (4, B), with the
+    reference's half-angle expressions and signs, the third component
+    negated (`_eulerToQuaternion`, :330-337)."""
+    cph, cth, cps, sph, sth, sps = _sincos(phi / 2, theta / 2, psi / 2)
+    return torch.stack([
+        cph * cth * cps + sph * sth * sps,
+        cph * sth * sps - sph * cth * cps,
+        -cph * sth * cps - sph * cth * sps,
+        cph * cth * sps - sph * sth * cps,
+    ])
+
+
+STATE_KEYS = ('x', 'dx', 'y', 'dy', 'z', 'dz',
+              'phi', 'dphi', 'theta', 'dtheta', 'psi', 'dpsi')
+
+
+def state_dict(state: DynamicsState):
+    """The vehicle state as {name: () or (B,) tensor}, in the key order of
+    `Dynamics.getState` (reference :199-207)."""
+    return {key: state.x[i] for i, key in enumerate(STATE_KEYS)}
+
+
+def get_time(state: DynamicsState, dt: float):
+    """Simulated time ticks * dt in the state's float dtype
+    (`Dynamics.getTime`, reference :219-221); a touchdown step does not
+    tick (:177)."""
+    return state.ticks.to(state.x.dtype) * dt

@@ -10,9 +10,13 @@ rotations, `fold_in`, `split`, `random_bits`, `uniform`, `normal` and
 `permutation` in the partitionable counter layout
 (`jax_threefry_partitionable`, the default), for float32 (32 random bits)
 and float64 (64 random bits, as JAX draws them with x64 on).  Every draw is
-bit-equal to JAX's except `normal`, whose `torch.erfinv` differs from XLA's
-polynomial by 1 ULP at the median and by up to some hundreds of ULP in the
-far tails.
+bit-equal to JAX's except `normal`, whose inverse error function is XLA's
+polynomial (`_erf_inv`) on torch's `log1p`, a few ULP from XLA's own.
+
+In that layout the counter of element (a, b) of a draw of shape (A, B) is
+a·B + b, so `random_bits` and `normal` take `cols=(lo, hi)`: the columns
+lo..hi-1 of the draw of the whole shape, as the rank that holds those
+columns of a sharded env batch takes them (parallel/sharding.py).
 
 torch has no uint32 arithmetic, and its int32 `>>` is arithmetic, so the
 words are held in int64 tensors and every sum is masked with 0xFFFFFFFF.
@@ -81,17 +85,25 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([o0, o1], dim=-1)
 
 
-def _words(key: torch.Tensor, shape) -> tuple:
-    """The two threefry words of the counters 0 .. prod(shape) - 1 under one
-    key (2,), each of `shape`."""
-    counts = torch.arange(math.prod(shape), dtype=torch.int64,
-                          device=key.device).reshape(shape)
+def _words(key: torch.Tensor, shape, cols=None) -> tuple:
+    """The two threefry words under one key (2,) of the counters 0 ..
+    prod(shape) - 1 laid out in `shape`, or of their trailing-axis columns
+    cols = (lo, hi) only; each word has shape shape[:-1] + (hi - lo,)."""
+    *lead, width = shape
+    lo, hi = (0, width) if cols is None else cols
+    if not 0 <= lo <= hi <= width:
+        raise ValueError(f'columns {cols} outside a trailing axis of {width}')
+    rows = torch.arange(math.prod(lead), dtype=torch.int64,
+                        device=key.device)[:, None] * width
+    counts = (rows + torch.arange(lo, hi, dtype=torch.int64,
+                                  device=key.device)).reshape(*lead, hi - lo)
     return threefry2x32(key[0], key[1], torch.zeros_like(counts), counts)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """`jax.random.bits(key, shape, uint32)`: int64 values in [0, 2**32)."""
-    b1, b2 = _words(key, shape)
+def random_bits(key: torch.Tensor, shape, cols=None) -> torch.Tensor:
+    """`jax.random.bits(key, shape, uint32)`: int64 values in [0, 2**32);
+    with cols = (lo, hi), only those columns of the trailing axis."""
+    b1, b2 = _words(key, shape, cols)
     return b1 ^ b2
 
 
@@ -133,22 +145,105 @@ def uniform(key: torch.Tensor, n: int, minval: float, maxval: float,
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
+# XLA's erf_inv (`ErfInv32`/`ErfInv64`, as `chlo.erf_inv` lowers on the CPU
+# and GPU): Giles' polynomials in w = -log1p(-x^2), highest order first, each
+# with the shift of w it is evaluated at: (w below which it applies, use
+# sqrt(w), shift, coefficients)
+_ERF_INV_POLYS = {
+    torch.float32: (
+        (5.0, False, 2.5, (
+            2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+            0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+            1.50140941)),
+        (math.inf, True, 3.0, (
+            -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+            0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+            2.83297682))),
+    torch.float64: (
+        (6.25, False, 3.125, (
+            -3.6444120640178196996e-21, -1.685059138182016589e-19,
+            1.2858480715256400167e-18, 1.115787767802518096e-17,
+            -1.333171662854620906e-16, 2.0972767875968561637e-17,
+            6.6376381343583238325e-15, -4.0545662729752068639e-14,
+            -8.1519341976054721522e-14, 2.6335093153082322977e-12,
+            -1.2975133253453532498e-11, -5.4154120542946279317e-11,
+            1.051212273321532285e-09, -4.1126339803469836976e-09,
+            -2.9070369957882005086e-08, 4.2347877827932403518e-07,
+            -1.3654692000834678645e-06, -1.3882523362786468719e-05,
+            0.0001867342080340571352, -0.00074070253416626697512,
+            -0.0060336708714301490533, 0.24015818242558961693,
+            1.6536545626831027356)),
+        (16.0, True, 3.25, (
+            2.2137376921775787049e-09, 9.0756561938885390979e-08,
+            -2.7517406297064545428e-07, 1.8239629214389227755e-08,
+            1.5027403968909827627e-06, -4.013867526981545969e-06,
+            2.9234449089955446044e-06, 1.2475304481671778723e-05,
+            -4.7318229009055733981e-05, 6.8284851459573175448e-05,
+            2.4031110387097893999e-05, -0.0003550375203628474796,
+            0.00095328937973738049703, -0.0016882755560235047313,
+            0.0024914420961078508066, -0.0037512085075692412107,
+            0.005370914553590063617, 1.0052589676941592334,
+            3.0838856104922207635)),
+        (math.inf, True, 5.0, (
+            -2.7109920616438573243e-11, -2.5556418169965252055e-10,
+            1.5076572693500548083e-09, -3.7894654401267369937e-09,
+            7.6157012080783393804e-09, -1.4960026627149240478e-08,
+            2.9147953450901080826e-08, -6.7711997758452339498e-08,
+            2.2900482228026654717e-07, -9.9298272942317002539e-07,
+            4.5260625972231537039e-06, -1.9681778105531670567e-05,
+            7.5995277030017761139e-05, -0.00021503011930044477347,
+            -0.00013871931833623122026, 1.0103004648645343977,
+            4.8499064014085844221))),
+}
 
-def normal(key: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The IEEE square root.  On the CPU `torch.sqrt` (like `torch.erfinv`,
+    `exp`, `sin`) calls MKL's vector library, which rounds 0.7 % of float32
+    square roots differently and, on its first call from several threads of
+    a process that shares the CPU with others, can compute one thread's
+    share with a variant accurate to only 6e-5; numpy's is exact."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.from_numpy(np.sqrt(x.numpy()))
+
+
+def _erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's erf_inv for x in (-1, 1): each polynomial is evaluated on every
+    element by Horner's rule, `c + p * w` as XLA writes it, and each element
+    takes the one its w selects, so it gets XLA's operations in XLA's order.
+    What differs is torch's `log1p`, and XLA's fusing `c + p * w` into one
+    FMA (tests/test_torch_prng.py states the measured gap)."""
+    w = -torch.log1p(-(x * x))
+    sqrt_w = _sqrt(w)
+    out = None
+    for below, use_sqrt, shift, coeffs in reversed(_ERF_INV_POLYS[x.dtype]):
+        t = (sqrt_w if use_sqrt else w) - shift
+        p = torch.full_like(x, coeffs[0])
+        for c in coeffs[1:]:
+            p = c + p * t
+        out = p if out is None else torch.where(w < below, p, out)
+    return out * x
+
+
+def normal(key: torch.Tensor, shape, dtype=torch.float32,
+           cols=None) -> torch.Tensor:
     """`jax.random.normal(key, shape, dtype)` for one key (2,):
-    sqrt(2) * erfinv(u), u uniform on [nextafter(-1, 0), 1).
+    sqrt(2) * erf_inv(u), u uniform on [nextafter(-1, 0), 1); with cols =
+    (lo, hi), only those columns of the trailing axis.
 
     JAX computes u = f * (1 - lo) + lo; 1 - lo rounds to 2.0, so u is
     2f + lo with 2f exact: one rounding with an FMA or without, and u is
-    bit-equal.  `torch.erfinv` and XLA's erf_inv polynomial differ by 1 ULP
-    at the median, more in the far tails (tests/test_torch_prng.py states
-    the measured gap)."""
+    bit-equal.  erf_inv is XLA's polynomial (`_erf_inv`), not
+    `torch.erfinv`, whose rational guess and Newton steps on libm's `erff`
+    and `expf` differ from XLA's by up to 91 ULP in float32 (682 in
+    float64)."""
     np_dtype = _NP_DTYPES[dtype]
     lo = float(np.nextafter(np_dtype(-1.0), np_dtype(0.0)))
-    b1, b2 = _words(key, shape)
+    b1, b2 = _words(key, shape, cols)
     u = (_unit_floats(b1, b2, dtype) - 1.0) * 2.0 + lo
     u = torch.maximum(u, torch.full((), lo, dtype=dtype, device=key.device))
-    return torch.erfinv(u) * math.sqrt(2.0)
+    return _erf_inv(u) * math.sqrt(2.0)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -15,6 +15,17 @@ some 10^5 small kernels.  The graphs run the same operations as the eager
 path, which the CPU runs and which the graphed path is held against on the
 card.  A capture that fails raises; nothing falls back to the eager path.
 
+Sharded (`group=`, parallel/sharding.py), W ranks compute what one device
+computes on the global batch, as the JAX step does under a mesh: each rank
+rolls out its columns of the env batch (noise drawn over the global shape),
+the rollout's metrics are all-reduced, the flattened rollout is all-gathered
+in global order, and every minibatch of the global shuffle is split in W
+column shares whose gradient sums are all-reduced before the same clip,
+`target_kl` guard and Adam step on every rank.  Without a group the same
+code runs with its collectives left out: the unsharded step is the W = 1
+case.  NCCL collectives are captured in the graphs; gloo ones cannot be, so
+a gloo world steps eagerly.
+
 Action parameterization: env_action = hover * (1 + a), a ~ N(mu, sigma),
 so a = 0 is hover (see the JAX module's docstring).
 """
@@ -26,15 +37,18 @@ import sys
 from typing import Callable, List, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from gym_copter_tpu_torch.control.heuristics import hover_motor_value
 from gym_copter_tpu_torch.core import prng
 from gym_copter_tpu_torch.core.device import div, resolve_device
+from gym_copter_tpu_torch.core.tree import tree_map
 from gym_copter_tpu_torch.core.types import EnvParams
 from gym_copter_tpu_torch.envs import base
 from gym_copter_tpu_torch.envs.base import EnvState, TaskSpec
 from gym_copter_tpu_torch.learn import optim
+from gym_copter_tpu_torch.parallel import sharding
 
 
 class PPOConfig(NamedTuple):
@@ -247,15 +261,6 @@ METRICS = ('reward_per_step', 'episode_return_proxy', 'done_rate',
            'pg_loss', 'v_loss', 'entropy', 'approx_kl')
 
 
-def _map(fn, *trees):
-    """fn over the tensors of matching nested tuples and lists."""
-    t = trees[0]
-    if isinstance(t, torch.Tensor):
-        return fn(*trees)
-    parts = [_map(fn, *xs) for xs in zip(*trees)]
-    return type(t)(*parts) if hasattr(t, '_fields') else type(t)(parts)
-
-
 class _Graph:
     """`fn` as one CUDA graph, captured at the first call.  The inputs are
     copied into static buffers (skipped for a buffer passed back as itself),
@@ -270,7 +275,7 @@ class _Graph:
         self.graph = None
 
     def _capture(self, inputs):
-        self.inputs = _map(torch.clone, inputs)
+        self.inputs = tree_map(torch.clone, inputs)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -285,8 +290,8 @@ class _Graph:
     def __call__(self, *inputs):
         if self.graph is None:
             self._capture(inputs)
-        _map(lambda s, x: None if s is x else s.copy_(x), self.inputs,
-             inputs)
+        tree_map(lambda s, x: None if s is x else s.copy_(x), self.inputs,
+                 inputs)
         self.graph.replay()
         return self.outputs
 
@@ -299,14 +304,28 @@ class TrainStep:
 
     The rollout is graphed as one policy + env step replayed T times,
     which measured faster on the H100 than the whole T-step rollout as one
-    graph (PERF.md)."""
+    graph (PERF.md).
+
+    With a process `group`, `env_ids` are the global ids of this rank's
+    columns of the env batch (rank r of W holds [r·b, (r+1)·b)), the
+    TrainState holds those columns, and every rank ends each step with the
+    same parameters and optimizer state."""
 
     def __init__(self, env_params: EnvParams, spec: TaskSpec,
-                 cfg: PPOConfig, base_key, env_ids, optimizer):
+                 cfg: PPOConfig, base_key, env_ids, optimizer, group=None):
         self.env_params, self.spec, self.cfg = env_params, spec, cfg
         self.base_key, self.env_ids = base_key, env_ids
         self.optimizer = optimizer
         self.hover = hover_motor_value(env_params)
+        self.group = group
+        self.rank, self.world = sharding.world_of(group)
+        self.num_envs = int(env_ids.shape[0]) * self.world
+        self.cols = sharding.env_columns(self.num_envs, self.rank,
+                                         self.world)
+        mb = self.num_envs * cfg.rollout_steps // cfg.minibatches
+        if mb % self.world != 0:
+            raise ValueError(f'minibatch of {mb} transitions does not split '
+                             f'into {self.world} equal shares')
         # the lambdas read the phase methods at capture time
         self.rollout_graph = _Graph(lambda *a: self.rollout(*a, 1), warmup=1)
         self.gae_graph = _Graph(lambda *a: self.advantages(*a), warmup=1)
@@ -322,7 +341,9 @@ class TrainStep:
             for _ in range(num_steps):
                 key, sub = prng.split(key)
                 mean, log_std, value = _policy(leaves, obs, cfg)
-                noise = prng.normal(sub, tuple(mean.shape), mean.dtype)
+                # this rank's columns of the global draw
+                noise = prng.normal(sub, (mean.shape[0], self.num_envs),
+                                    mean.dtype, cols=self.cols)
                 action = mean + torch.exp(log_std) * noise
                 log_prob = _log_prob(mean, log_std, action)
                 env_action = self.hover * (1.0 + action)
@@ -338,7 +359,8 @@ class TrainStep:
 
     def advantages(self, leaves, traj: Transition, obs):
         """GAE over the trajectory (a reverse loop over T), flattened to
-        (…, T*B) features-first; and the rollout's three metrics."""
+        (…, T*B) features-first over the global batch; and the rollout's
+        three metrics over the global batch."""
         cfg = self.cfg
         with torch.no_grad():
             _, _, last_value = _policy(leaves, obs, cfg)
@@ -353,44 +375,83 @@ class TrainStep:
                 gae = delta[t] + decay[t] * gae
                 adv[t] = gae
             target = adv + traj.value
+            sums = torch.stack([traj.reward.sum(), traj.reward.sum(0).sum(),
+                                traj.done.to(traj.reward.dtype).sum()])
+            parts = (traj.obs, traj.action, traj.log_prob, traj.value, adv,
+                     target)
+            if self.group is not None:
+                dist.all_reduce(sums, group=self.group)
+                # one all-gather of the six (T, …, b) parts packed as rows
+                rows = torch.cat([traj.obs, traj.action, torch.stack(
+                    [traj.log_prob, traj.value, adv, target], 1)], 1)
+                rows = sharding.gather_columns(rows, self.group)
+                d, a = traj.obs.shape[1], traj.action.shape[1]
+                parts = (rows[:, :d], rows[:, d:d + a]) + tuple(
+                    rows[:, d + a + i] for i in range(4))
 
             def flat3(x):  # (T, D, B) -> (D, T*B)
                 return torch.movedim(x, 1, 0).reshape(x.shape[1], -1)
 
-            flat = (flat3(traj.obs), flat3(traj.action),
-                    traj.log_prob.reshape(-1), traj.value.reshape(-1),
-                    adv.reshape(-1), target.reshape(-1))
-            stats = torch.stack([traj.reward.mean(),
-                                 traj.reward.sum(0).mean(),
-                                 traj.done.to(traj.reward.dtype).mean()])
+            flat = (flat3(parts[0]), flat3(parts[1])) + tuple(
+                x.reshape(-1) for x in parts[2:])
+            steps = traj.reward.shape[0] * self.num_envs
+            stats = torch.stack([div(sums[0], steps),
+                                 div(sums[1], self.num_envs),
+                                 div(sums[2], steps)])
         return flat, stats
 
     def loss(self, leaves, obs, action, old_log_prob, old_value, advantage,
-             target):
-        """The clipped surrogate with value loss and entropy bonus; returns
-        (loss, (pg_loss, v_loss, entropy, approx_kl) stacked)."""
+             target, share=None):
+        """The clipped surrogate with value loss and entropy bonus over the
+        minibatch given; returns (loss, (pg_loss, v_loss, entropy,
+        approx_kl) stacked).
+
+        With share = (lo, hi), this rank's columns of it: their sums over
+        the whole minibatch's size, the advantages normalized by the whole
+        minibatch's mean and std, and the data-free entropy term on rank 0
+        only, so that the ranks' losses, gradients and aux sum to the whole
+        minibatch's."""
         cfg = self.cfg
+        n = advantage.shape[-1]
+        adv_mean, adv_std = advantage.mean(), advantage.std(correction=0)
+        if share is not None:
+            obs, action, old_log_prob, old_value, advantage, target = (
+                x[..., share[0]:share[1]] for x in (
+                    obs, action, old_log_prob, old_value, advantage, target))
         mean, log_std, value = _policy(leaves, obs, cfg)
         log_prob = _log_prob(mean, log_std, action)
         ratio = torch.exp(log_prob - old_log_prob)
-        adv = (advantage - advantage.mean()) / (
-            advantage.std(correction=0) + 1e-8)
+        adv = (advantage - adv_mean) / (adv_std + 1e-8)
         pg1 = ratio * adv
         pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv
-        pg_loss = -torch.mean(torch.minimum(pg1, pg2))
+        pg_loss = -div(torch.sum(torch.minimum(pg1, pg2)), n)
         if cfg.value_clip > 0:
             v_clipped = old_value + torch.clamp(value - old_value,
                                                 -cfg.value_clip,
                                                 cfg.value_clip)
-            v_loss = 0.5 * torch.mean(torch.maximum(
-                (value - target) ** 2, (v_clipped - target) ** 2))
+            v_loss = 0.5 * div(torch.sum(torch.maximum(
+                (value - target) ** 2, (v_clipped - target) ** 2)), n)
         else:
-            v_loss = 0.5 * torch.mean((value - target) ** 2)
-        entropy = torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e))
+            v_loss = 0.5 * div(torch.sum((value - target) ** 2), n)
+        if self.rank == 0:
+            entropy = torch.sum(log_std
+                                + 0.5 * math.log(2 * math.pi * math.e))
+        else:
+            entropy = log_std.new_zeros(())
         loss = pg_loss + cfg.value_coef * v_loss - cfg.entropy_coef * entropy
         # the low-variance k3 estimator E[ratio - 1 - log ratio]
-        approx_kl = torch.mean((ratio - 1.0) - (log_prob - old_log_prob))
+        approx_kl = div(torch.sum((ratio - 1.0) - (log_prob - old_log_prob)),
+                        n)
         return loss, torch.stack([pg_loss, v_loss, entropy, approx_kl])
+
+    def _all_reduce(self, grads, aux):
+        """The sums over the ranks of every gradient and of aux, in one
+        all-reduce of the flattened tensors."""
+        flat = torch.cat([g.reshape(-1) for g in grads] + [aux])
+        dist.all_reduce(flat, group=self.group)
+        parts = torch.split(flat, [g.numel() for g in grads] + [aux.numel()])
+        return ([p.view_as(g) for p, g in zip(parts, grads)],
+                parts[-1].view_as(aux))
 
     def update(self, leaves, opt_state: optim.AdamState, key, flat):
         """cfg.epochs passes over the flattened rollout, each a block
@@ -398,12 +459,19 @@ class TrainStep:
         per-minibatch target_kl guard: from the first minibatch whose
         approx-KL (on the params before its own step) exceeds the target,
         updates are zeroed and the optimizer state kept.  Returns (leaves,
-        opt_state, key, mean of (pg_loss, v_loss, entropy, approx_kl))."""
+        opt_state, key, mean of (pg_loss, v_loss, entropy, approx_kl)).
+
+        Every rank holds the whole flattened rollout and draws the same
+        shuffle; it takes the gradient of its column share of each
+        minibatch, and the shares' sums, all-reduced with the aux before
+        the guard reads approx_kl, give every rank the same step."""
         cfg = self.cfg
         n = flat[0].shape[-1]
         block = cfg.shuffle_block if n % cfg.shuffle_block == 0 else 1
         nblocks = n // block
         mb = n // cfg.minibatches
+        share = (self.rank * mb // self.world,
+                 (self.rank + 1) * mb // self.world)
         stop = torch.zeros((), dtype=torch.bool, device=key.device)
         aux = []
         for _ in range(cfg.epochs):
@@ -416,9 +484,11 @@ class TrainStep:
                 batch = [x[..., i * mb:(i + 1) * mb] for x in shuffled]
                 with torch.enable_grad():
                     req = [p.detach().requires_grad_() for p in leaves]
-                    loss, mb_aux = self.loss(req, *batch)
+                    loss, mb_aux = self.loss(req, *batch, share=share)
                     grads = list(torch.autograd.grad(loss, req))
                 mb_aux = mb_aux.detach()
+                if self.group is not None:
+                    grads, mb_aux = self._all_reduce(grads, mb_aux)
                 updates, new_state = self.optimizer.update(grads, opt_state)
                 if cfg.target_kl > 0:
                     stop = stop | (mb_aux[3] > cfg.target_kl)
@@ -461,6 +531,10 @@ class TrainStep:
                 marks.append(torch.cuda.Event(enable_timing=True))
                 marks[-1].record()
 
+        if graphed and self.group is not None and \
+                dist.get_backend(self.group) != 'nccl':
+            raise ValueError('a CUDA graph cannot capture gloo collectives: '
+                             'step a gloo world eagerly (step.eager)')
         if graphed and not ts.obs.is_cuda:
             raise ValueError('CUDA graphs need the train state on the card')
         leaves = ts.params.leaves()
@@ -481,7 +555,7 @@ class TrainStep:
         metrics = torch.cat([stats, aux.to(stats.dtype)])
         if graphed:
             # the graphs' static outputs are overwritten by the next replay
-            leaves, opt_state, env_state, obs, key = _map(
+            leaves, opt_state, env_state, obs, key = tree_map(
                 torch.clone, (leaves, opt_state, env_state, obs, key))
         new_ts = TrainState(params=ActorCritic.from_leaves(leaves),
                             opt_state=opt_state, env_state=env_state,
@@ -490,16 +564,18 @@ class TrainStep:
 
 
 def make_train_step(env_params: EnvParams, spec: TaskSpec, cfg: PPOConfig,
-                    base_key, env_ids, optimizer=None):
+                    base_key, env_ids, optimizer=None, group=None):
     """The PPO train step over the envs `env_ids` (auto-resets keyed by
     `base_key`), on their device: `(train_step, optimizer)`.  optimizer
     defaults to clip_by_global_norm(cfg.max_grad_norm) then Adam at
-    cfg.learning_rate."""
-    cfg = resolve_minibatches(cfg, int(env_ids.shape[0]))
+    cfg.learning_rate.  With a process `group`, `env_ids` are this rank's
+    global ids and the minibatches resolve for the global batch."""
+    world = sharding.world_of(group)[1]
+    cfg = resolve_minibatches(cfg, int(env_ids.shape[0]) * world)
     if optimizer is None:
         optimizer = optim.ClipAdam(cfg.max_grad_norm, cfg.learning_rate)
     return TrainStep(env_params, spec, cfg, base_key, env_ids,
-                     optimizer), optimizer
+                     optimizer, group), optimizer
 
 
 def init_train_state(key, env_params: EnvParams, spec: TaskSpec,
@@ -589,13 +665,19 @@ def train(env_name: str = 'Hover3D-v0', num_envs: int = 1024,
           num_updates: int = 200, seed: int = 0,
           cfg: PPOConfig = PPOConfig(), env_params: EnvParams = None,
           log_every: int = 10, callback=None, keep_best: bool = False,
-          device=None):
+          device=None, group=None):
     """The training loop: make, init, num_updates train steps with the
     learning rate annealed linearly over every optimizer step, and a
     deterministic evaluation every `log_every` updates and at the last.
     Runs on the card unless device='cpu'.  Returns (TrainState, history
     [(update, metrics)]); with keep_best the params are the best evaluated
-    ones."""
+    ones.
+
+    With a process `group` (parallel/sharding.py `init_world`), `num_envs`
+    is the global batch and each rank steps its columns on `device`; the
+    parameters and optimizer state start from rank 0's.  Rank 0 evaluates
+    and returns the history; the others return an empty one.  A gloo group
+    on the card raises, since its collectives cannot be graphed."""
     from gym_copter_tpu_torch.envs import tasks as task_registry
     from gym_copter_tpu_torch.envs.registry import default_params
 
@@ -605,10 +687,12 @@ def train(env_name: str = 'Hover3D-v0', num_envs: int = 1024,
         preset = task_registry.PRESET_PARAMS.get(env_name)
         env_params = preset() if preset is not None else default_params()
     cfg = resolve_minibatches(cfg, num_envs)
+    rank, world = sharding.world_of(group)
+    lo, hi = sharding.env_columns(num_envs, rank, world)
 
     key = prng.PRNGKey(seed, device)
     base_key = prng.PRNGKey(seed + 1, device)
-    env_ids = torch.arange(num_envs, dtype=torch.int32, device=device)
+    env_ids = torch.arange(lo, hi, dtype=torch.int32, device=device)
     optimizer = None
     if cfg.anneal_lr:
         schedule = optim.linear_schedule(
@@ -617,15 +701,20 @@ def train(env_name: str = 'Hover3D-v0', num_envs: int = 1024,
             transition_steps=num_updates * cfg.epochs * cfg.minibatches)
         optimizer = optim.ClipAdam(cfg.max_grad_norm, schedule)
     step, optimizer = make_train_step(env_params, spec, cfg, base_key,
-                                      env_ids, optimizer=optimizer)
-    ts = init_train_state(key, env_params, spec, cfg, num_envs, optimizer)
-    evaluate = make_eval_fn(env_params, spec, cfg, num_envs=EVAL_NUM_ENVS,
-                            device=device)
+                                      env_ids, optimizer=optimizer,
+                                      group=group)
+    ts = init_train_state(key, env_params, spec, cfg, hi - lo, optimizer,
+                          env_id_offset=lo)
+    if group is not None:
+        ts = ts._replace(params=sharding.replicate(ts.params, group),
+                         opt_state=sharding.replicate(ts.opt_state, group))
+    evaluate = (make_eval_fn(env_params, spec, cfg, num_envs=EVAL_NUM_ENVS,
+                             device=device) if rank == 0 else None)
     history = []
     best_eval, best_params = -float('inf'), None
     for i in range(num_updates):
         ts, metrics = step(ts)
-        if i % log_every == 0 or i == num_updates - 1:
+        if rank == 0 and (i % log_every == 0 or i == num_updates - 1):
             metrics = {k: float(v) for k, v in metrics.items()}
             metrics['eval_return'] = float(evaluate(ts.params)[0])
             if keep_best and metrics['eval_return'] > best_eval:

@@ -10,7 +10,9 @@ The cases, shared with `chip_smoke.py`, are in tests/torch_cuda_cases.py:
 every task kind, with and without random resets, Lander3D at 4096 envs,
 and batches that are not a multiple of 128 or of 8, each at every
 lanes-per-env choice (1, 4).  Kernel and plain version must agree bit
-for bit in every field.
+for bit in every field.  The PPO, sharding, checkpoint and profiling tests
+at the end hold the graphed paths against their eager or one-rank
+counterparts on the card.
 """
 
 import pytest
@@ -175,6 +177,92 @@ def test_graphed_eval_equals_eager():
     want = evaluate(ts.params, graphed=False)[1]
     for _ in range(2):
         assert torch.equal(evaluate(ts.params)[1], want)
+
+
+@pytest.mark.cuda
+def test_sharded_graphed_step_equals_unsharded_nccl(tmp_path):
+    """In a one-rank NCCL world, the sharded train step, graphed with its
+    all-reduces and all-gather inside the graphs, equals the unsharded
+    graphed step bit for bit over two steps; so does the sharded fused
+    rollout equal fused_rollout."""
+    import torch.distributed as dist
+    from gym_copter_tpu_torch.parallel import sharding
+
+    device = _card()
+    group, dev = sharding.init_world('nccl', 0, 1,
+                                     f'file://{tmp_path}/store')
+    try:
+        env, plain, ts = _small_step(dev)
+        sharded, _ = ppo.make_train_step(env.params, env.spec, plain.cfg,
+                                         prng.PRNGKey(1, device),
+                                         env.env_ids, group=group)
+        a, b = ts, ts
+        for i in range(2):
+            a, ma = plain(a)
+            b, mb = sharded(b)
+            assert state_diff(a, b, f'step {i}') == 0.0
+            assert all(torch.equal(ma[k], mb[k]) for k in ma)
+        state = reset_state(env.params, env.spec, 256, dev)
+        act = torch.full((4, 256), 1.625e-2, device=dev)
+        got = sharding.sharded_fused_rollout(state, act, 500, env.params,
+                                             env.spec, env_ids=env.env_ids)
+        want = fr.fused_rollout(state, act, 500, env.params, env.spec)
+        compare(got, want, 'sharded vs one rank')
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_gloo_ranks_share_the_card():
+    """Two gloo ranks on the one card (parallel/launch.py, a small PPO
+    config, eager steps): the gathered fused rollout equals the one-rank
+    layout and the ranks end with the same parameters."""
+    from gym_copter_tpu_torch.parallel import launch
+
+    _card()
+    report = launch.run(2, 'gloo', 'cuda', envs_per_rank=256, updates=1,
+                        ppo_kw=dict(rollout_steps=16, hidden=16,
+                                    minibatches=4, epochs=2),
+                        timeout_s=300)
+    assert report['totals_equal_one_rank']
+    assert report['params_equal_across_ranks'] and not report['graphed']
+
+
+@pytest.mark.cuda
+def test_checkpoint_resumes_graphed_steps(tmp_path):
+    """A TrainState on the card saved and restored (utils/checkpoint.py)
+    comes back on the card, equal; graphed steps from it equal the
+    uninterrupted ones bit for bit."""
+    from gym_copter_tpu_torch.utils import checkpoint
+
+    device = _card()
+    env, step, ts = _small_step(device)
+    ts, _ = step(ts)
+    path = str(tmp_path / 'ts.npz')
+    checkpoint.save(path, ts, step.optimizer)
+    restored = checkpoint.restore(path, ts, step.optimizer)
+    assert restored.obs.is_cuda and state_diff(restored, ts, 'restore') == 0
+    a, b = ts, restored
+    for i in range(2):
+        a, _ = step(a)
+        b, _ = step(b)
+        assert state_diff(a, b, f'resumed step {i}') == 0.0
+
+
+@pytest.mark.cuda
+def test_trace_of_a_graphed_step_holds_kernels(tmp_path):
+    """torch.profiler (utils/profiling.py `trace`) sees the kernels that a
+    graphed train step replays, and `device_busy` reads a busy share in
+    (0, 1]."""
+    from gym_copter_tpu_torch.utils import profiling
+
+    device = _card()
+    env, step, ts = _small_step(device)
+    ts, _ = step(ts)
+    with profiling.trace(str(tmp_path)):
+        step(ts)
+    out = profiling.device_busy(str(tmp_path / profiling.TRACE_FILE))
+    assert out['kernels'] > 100 and 0 < out['busy_share'] <= 1
 
 
 @pytest.mark.cuda

@@ -113,26 +113,16 @@ def scenarios():
 
 def train_state_to(ts, device):
     """A PPO TrainState with every tensor copied to `device`."""
-    from gym_copter_tpu_torch.learn import ppo
+    from gym_copter_tpu_torch.core.tree import tree_map
 
-    def move(tree):
-        return ppo._map(lambda t: t.to(device), tree)
-
-    return ts._replace(
-        params=ppo.ActorCritic.from_leaves(move(ts.params.leaves())),
-        opt_state=move(ts.opt_state), env_state=move(ts.env_state),
-        obs=ts.obs.to(device), key=ts.key.to(device),
-        update_idx=ts.update_idx.to(device))
+    return tree_map(lambda t: t.to(device), ts)
 
 
 def state_tensors(ts):
     """Every tensor of a PPO TrainState, params first, in a fixed order."""
-    from gym_copter_tpu_torch.learn import ppo
+    from gym_copter_tpu_torch.core.tree import tree_leaves
 
-    out = []
-    ppo._map(out.append, (ts.params.leaves(), ts.opt_state, ts.env_state,
-                          ts.obs, ts.key, ts.update_idx))
-    return out
+    return tree_leaves(ts)
 
 
 def state_diff(a, b, what):
