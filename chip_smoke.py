@@ -47,6 +47,18 @@ Phases, each printed before the last line:
   5e. [trace]: a torch.profiler trace of two graphed train steps: the
      device's busy and idle shares and its top kernels (utils/
      profiling.py); one {"dist": ..., "ckpt": ..., "trace": ...} line;
+  5f. [evo]: the recorded NEAT and HyperNEAT Lander3D champions
+     (docs/*_lander3d_champion.npz) carried across and evaluated on 100
+     episodes, graphed and eagerly (bit-equal), each mean held to a band
+     around the JAX package's CPU score; NEAT (3 generations) and HyperNEAT
+     (2) at 960 genomes x 10 episodes beside the recorded curves, with
+     seconds per generation and fitness, holdout and evolve timed apart,
+     env-steps/s and graph nodes per env step; one evolve on the card
+     against the CPU; every PID expert at 4096 envs x 1000 steps, graphed,
+     Lander3D's and Hover3D's held to tests/test_pid.py's thresholds; the
+     adaptive controller over the wind sweep for 6000 steps, held to
+     tests/test_adaptive.py's; the Mars hover anchor and the Mars PPO
+     learning smoke of tests/test_mars.py; one {"evo": ...} line;
   6. times with CUDA events after warm-up: the kernel's device time at the
      main path's shape, with the wrapper's host time apart; the kernel at
      1024, 4096, 8192, 12,288, 16,384 and 65,536 envs at every lanes-per-env
@@ -70,9 +82,14 @@ runs only phase 1 and the PPO phase.
     python3 chip_smoke.py --dist-only
 
 runs only phase 1 and phases 5b-5e.
+
+    python3 chip_smoke.py --evo-only
+
+runs only phase 1 and phase 5f.
 """
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -862,6 +879,332 @@ def ckpt_phase(step, ts):
     return out
 
 
+# the recorded Lander3D champions (docs/*_lander3d_champion.npz) evaluated
+# by the JAX package on the CPU in float32 (reps 100, seed 77, episode
+# 10000), and the band each mean on the card is held to: one episode that
+# ends differently moves a mean of 100 by up to ~4
+CHAMPIONS = {'neat': (311.29, 8.0), 'hyperneat': (317.86, 3.0)}
+EVO_POP, EVO_REPS = 960, 10
+EVO_GENERATIONS = {'neat': 3, 'hyperneat': 2}
+EXPERT_ENVS, EXPERT_STEPS = 4096, 1000
+ADAPTIVE_WINDS = (-4.0, -2.0, 0.0, 2.0, 4.0)
+ADAPTIVE_STEPS = 6000
+# the Mars learning smoke of tests/test_mars.py:57-75
+MARS_PPO = dict(rollout_steps=64, hidden=32, gamma=0.995, learning_rate=1e-3)
+MARS_UPDATES, MARS_ENVS, MARS_GAIN = 160, 256, 40.0
+
+
+def _recorded_curve(algo):
+    """Seed 0's recorded Lander3D learning curve (docs/{algo}_lander3d.json,
+    the JAX package's run of scripts/neat_evolve.py)."""
+    path = Path(__file__).resolve().parent / 'docs' / f'{algo}_lander3d.json'
+    runs = json.loads(path.read_text())['runs']
+    return next(r for r in runs if r['seed'] == 0)['curve']
+
+
+def _champions(out):
+    """Both recorded champions carried across and evaluated on the card,
+    graphed and eagerly (bit-equal), each mean held to its band."""
+    from gym_copter_tpu_torch.compat import convert
+    from gym_copter_tpu_torch.learn import hyperneat as hn
+    from gym_copter_tpu_torch.learn import neuroevolution as ne
+
+    docs = Path(__file__).resolve().parent / 'docs'
+    for algo, load, mod, cfg in (
+            ('neat', convert.genome_from_numpy, ne,
+             ne.NeatConfig(hidden=16)),
+            ('hyperneat', convert.cppn_from_numpy, hn,
+             hn.HyperNeatConfig())):
+        champ = load(docs / f'{algo}_lander3d_champion.npz')
+        (mean, per), first_s = _timed(lambda: mod.evaluate_champion(
+            champ, 'Lander3D-v0', cfg))
+        (_, again), graphed_s = _timed(lambda: mod.evaluate_champion(
+            champ, 'Lander3D-v0', cfg))
+        (_, eager), eager_s = _timed(lambda: mod.evaluate_champion(
+            champ, 'Lander3D-v0', cfg, graphed=False))
+        if not (torch.equal(per, eager) and torch.equal(per, again)):
+            raise AssertionError(f'{algo} champion: graphed and eager '
+                                 f'evaluations differ')
+        ref, band = CHAMPIONS[algo]
+        out[f'{algo}_champion'] = {
+            'mean': mean, 'std': float(per.std(correction=0)),
+            'jax_cpu_float32': ref, 'band': band,
+            'first_graphed_s': first_s, 'graphed_s': graphed_s,
+            'eager_s': eager_s}
+        log(f'[evo] {algo} champion (docs/{algo}_lander3d_champion.npz) on '
+            f'100 fresh Lander3D episodes (seed 77, episode 10000): mean '
+            f'{mean:.2f} (per-episode std {float(per.std(correction=0)):.1f})'
+            f' against the JAX package\'s {ref} on the CPU in float32 '
+            f'(band ±{band}); graphed = eager bit for bit; two graphed '
+            f'calls, each with its capture, {first_s:.2f} s and '
+            f'{graphed_s:.2f} s; eager {eager_s:.2f} s')
+        if abs(mean - ref) > band:
+            raise AssertionError(f'{algo} champion scores {mean:.2f}, '
+                                 f'outside {ref} ± {band}')
+
+
+def _timed(fn):
+    """(fn(), seconds) on the host clock, synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def _evolution(out, algo):
+    """evolve_population at full width (960 genomes x 10 episodes x 999
+    steps): each generation beside the recorded one, seconds per
+    generation; then fitness, holdout and evolve timed apart on the last
+    population, env-steps/s, and graph nodes per env step."""
+    from gym_copter_tpu_torch.core import prng
+    from gym_copter_tpu_torch.learn import hyperneat as hn
+    from gym_copter_tpu_torch.learn import neuroevolution as ne
+
+    if algo == 'neat':
+        mod, cfg = ne, ne.NeatConfig(pop_size=EVO_POP, episode_reps=EVO_REPS,
+                                     hidden=16)
+        pheno_cfg = cfg
+    else:
+        mod = hn
+        cfg = hn.HyperNeatConfig(pop_size=EVO_POP, episode_reps=EVO_REPS)
+        pheno_cfg = cfg.as_neat()
+    recorded = _recorded_curve(algo)
+    marks = [time.perf_counter()]
+
+    def callback(rec):
+        marks.append(time.perf_counter())
+        want = recorded[rec['generation']]
+        log(f'[evo] {algo} gen {rec["generation"]}: best '
+            f'{rec["best_fitness"]:.1f} mean {rec["mean_fitness"]:.1f} '
+            f'holdout {rec["holdout_best"]:.1f} (the JAX package\'s record: '
+            f'best {want["best_fitness"]:.1f} mean {want["mean_fitness"]:.1f} '
+            f'holdout {want["holdout_best"]:.1f}); '
+            f'{marks[-1] - marks[-2]:.2f} s')
+
+    champ, hist, pop = mod.evolve_population(
+        'Lander3D-v0', cfg, max_generations=EVO_GENERATIONS[algo], seed=0,
+        callback=callback)
+    gen_s = [b - a for a, b in zip(marks, marks[1:])]
+    for rec in hist:
+        if not all(math.isfinite(rec[k]) for k in ('best_fitness',
+                                                    'mean_fitness',
+                                                    'holdout_best')):
+            raise AssertionError(f'{algo}: generation {rec} not finite')
+
+    # the three parts of a generation, timed apart on the last population
+    decode = None
+    if algo == 'hyperneat':
+        decode = hn.make_decoder(hn.make_substrate(10, 4,
+                                                   cfg.substrate_hidden),
+                                 cfg)
+        pheno, decode_s = _timed(lambda: decode(pop))
+    else:
+        pheno, decode_s = pop, 0.0
+    fitness = ne.make_fitness_fn('Lander3D-v0', pheno_cfg)
+    holdout = ne.make_fitness_fn('Lander3D-v0', dataclasses.replace(
+        pheno_cfg, pop_size=pheno_cfg.topk), reps=pheno_cfg.holdout_reps,
+        seed=1001)
+    fitness(pheno, 0)  # capture
+    fit, fitness_s = _timed(lambda: fitness(pheno, len(hist)))
+    cands = ne.take_genomes(pheno, torch.argsort(-fit, stable=True)[:4])
+    holdout(cands, 2 ** 30)  # capture
+    _, holdout_s = _timed(lambda: holdout(cands, 2 ** 30))
+    evolve = mod.make_evolve_fn(cfg)
+    _, evolve_s = _timed(lambda: evolve(pop, fit, prng.PRNGKey(9, 'cuda')))
+    steps = EVO_POP * EVO_REPS * pheno_cfg.max_steps
+    genome, carry = fitness.start(pheno, 0)
+    nodes = _graph_nodes(lambda *a: fitness.steps(*a, n=1),
+                         (genome, *carry), 1)
+    with _OpCounter() as ops:
+        fitness.steps(genome, *carry, n=1)
+    out[algo] = {'history': hist, 'generation_s': gen_s,
+                 'fitness_s': fitness_s, 'holdout_s': holdout_s,
+                 'evolve_s': evolve_s, 'decode_s': decode_s,
+                 'env_steps_per_s': steps / fitness_s,
+                 'nodes_per_env_step': nodes, 'ops_per_env_step': ops.n,
+                 'champion_pop': int(champ[0].shape[0])}
+    log(f'[evo] {algo} at {EVO_POP} x {EVO_REPS} envs x '
+        f'{pheno_cfg.max_steps} steps: seconds per generation {gen_s} (the '
+        f'first with two graph captures); apart on the last population: '
+        f'fitness {fitness_s:.3f} s ({steps / fitness_s:.4g} env-steps/s), '
+        f'holdout ({pheno_cfg.topk} x {pheno_cfg.holdout_reps} envs) '
+        f'{holdout_s:.3f} s, evolve {evolve_s * 1e3:.1f} ms'
+        + (f', decode {decode_s * 1e3:.1f} ms' if decode else '')
+        + f'; CUDA graph (nodes, kernel nodes) per network + env step '
+        f'{nodes}, {ops.n} ATen operations')
+
+
+def _evolve_card_vs_cpu(out):
+    """One evolve step of the full-width NEAT population from the same
+    genome, fitness and key on the card and on the CPU."""
+    from gym_copter_tpu_torch.core import prng
+    from gym_copter_tpu_torch.core.tree import tree_map
+    from gym_copter_tpu_torch.learn import neuroevolution as ne
+
+    cfg = ne.NeatConfig(pop_size=EVO_POP, episode_reps=EVO_REPS, hidden=16)
+    cpu = torch.device('cpu')
+    genome = ne.init_population(prng.PRNGKey(0, cpu), 10, 4, cfg)
+    # many ties, as early generations have
+    fit = torch.round(prng.normal(prng.PRNGKey(1, cpu), (EVO_POP,)) * 3)
+    card = tree_map(lambda x: x.cuda(), genome)
+    for a, b in zip(ne.parents(cfg, fit, prng.PRNGKey(2, cpu),
+                               torch.float32),
+                    ne.parents(cfg, fit.cuda(), prng.PRNGKey(2, 'cuda'),
+                               torch.float32)):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError('tournament or crossover draws differ')
+    want = ne.make_evolve_fn(cfg)(genome, fit, prng.PRNGKey(2, cpu))
+    got = ne.make_evolve_fn(cfg)(card, fit.cuda(), prng.PRNGKey(2, 'cuda'))
+    worst = 0.0
+    for name, a, b in zip(want._fields, want, got):
+        if name.startswith('m'):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f'evolve on card and CPU: {name} '
+                                     f'differs')
+        else:
+            worst = max(worst, float((a - b.cpu()).abs().max()))
+    if worst > 1e-5:
+        raise AssertionError(f'evolve weights differ by {worst}')
+    out['evolve_card_vs_cpu_max_abs'] = worst
+    log(f'[evo] one evolve of {EVO_POP} float32 genomes on the card and on '
+        f'the CPU (same genome, tied fitness, key): tournament parents, '
+        f'crossover flags, elites and masks equal; weights within {worst:.3g}'
+        f' (held to 1e-5)')
+
+
+def _experts(out):
+    """Every PID_POLICIES expert at 4096 envs x 1000 steps, graphed."""
+    from gym_copter_tpu_torch.control import heuristics
+    from gym_copter_tpu_torch.core import constants as C
+
+    out['experts'] = {}
+    for name in heuristics.PID_POLICIES:
+        run, sec = _timed(lambda: heuristics.run_expert(
+            name, EXPERT_ENVS, EXPERT_STEPS))
+        end = run.end_x
+        on_pad = float(((end[C.STATE_Z].abs() < 1.0)
+                        & (torch.sqrt(end[C.STATE_X] ** 2
+                                      + end[C.STATE_Y] ** 2) < 2.0)
+                        & run.done_seen).float().mean())
+        rec = {'median_return': float(torch.quantile(run.total, 0.5)),
+               'done_share': float(run.done_seen.float().mean()),
+               'on_pad_share': on_pad, 'seconds': sec}
+        out['experts'][name] = rec
+        log(f'[evo] expert {name}: {EXPERT_ENVS} envs x {EXPERT_STEPS} '
+            f'steps graphed in {sec:.2f} s; median return '
+            f'{rec["median_return"]:.1f}, episodes ended '
+            f'{rec["done_share"]:.3f}, on the pad {on_pad:.3f}')
+        if not torch.isfinite(run.total).all():
+            raise AssertionError(f'expert {name}: returns not finite')
+    lander, hover = out['experts']['Lander3D-v0'], out['experts']['Hover3D-v0']
+    # tests/test_pid.py: median > 150 and 6 of 8 on the pad; median > 900
+    if lander['median_return'] <= 150 or lander['on_pad_share'] < 0.75:
+        raise AssertionError(f'lander3d_pid: {lander}')
+    if hover['median_return'] <= 900:
+        raise AssertionError(f'hover3d_pid: {hover}')
+
+
+def _adaptive(out):
+    """adaptive.run over the wind sweep, PD and adaptive, held to
+    tests/test_adaptive.py's thresholds."""
+    from gym_copter_tpu_torch.control.heuristics import hover_motor_value
+    from gym_copter_tpu_torch.core import vehicles
+    from gym_copter_tpu_torch.core.types import EnvParams
+    from gym_copter_tpu_torch.learn import adaptive
+
+    params = EnvParams(vehicle=vehicles.DJI_PHANTOM)
+    cfg = adaptive.AdaptiveConfig()
+    pd, pd_s = _timed(lambda: adaptive.run(params, ADAPTIVE_WINDS,
+                                           ADAPTIVE_STEPS, adapt=False))
+    ad, ad_s = _timed(lambda: adaptive.run(params, ADAPTIVE_WINDS,
+                                           ADAPTIVE_STEPS))
+    pd_err = adaptive.tracking_error(pd, cfg).cpu()
+    ad_err = adaptive.tracking_error(ad, cfg).cpu()
+    u_final = ad['u_extra'][-200:].mean(0).cpu()
+    hover = hover_motor_value(params)
+    diffs = torch.diff(u_final)
+    out['adaptive'] = {'pd_err': pd_err.tolist(), 'ad_err': ad_err.tolist(),
+                       'u_extra_final': u_final.tolist(), 'pd_s': pd_s,
+                       'adaptive_s': ad_s}
+    log(f'[evo] adaptive, winds {list(ADAPTIVE_WINDS)} N, {ADAPTIVE_STEPS} '
+        f'steps graphed: tracking error PD {pd_err.tolist()} m ({pd_s:.2f} '
+        f's), adaptive {ad_err.tolist()} m ({ad_s:.2f} s); learned thrust '
+        f'{u_final.tolist()} (hover {hover:.4f})')
+    if not ((pd_err > 1.0).all() and (ad_err < 0.2).all()
+            and (ad_err < pd_err / 5.0).all()
+            and ((diffs < 0).all() or (diffs > 0).all())
+            and abs(float(u_final[2]) - hover) < 0.5 * hover):
+        raise AssertionError(f'adaptive thresholds: {out["adaptive"]}')
+
+
+def _mars(out):
+    """The blade-element hover anchor holds altitude for 100 steps; the
+    Mars PPO learning smoke, graphed, gains more than 40 over its first
+    evaluation."""
+    from gym_copter_tpu_torch.control.heuristics import hover_motor_value
+    from gym_copter_tpu_torch.core import constants as C
+    from gym_copter_tpu_torch.core import prng
+    from gym_copter_tpu_torch.envs import base, tasks
+    from gym_copter_tpu_torch.learn import ppo
+
+    params = tasks.PRESET_PARAMS['Hover3DMars-v0']()
+    params = params._replace(task=params.task._replace(
+        initial_random_force=0.0))
+    ids = torch.arange(8, dtype=torch.int32, device='cuda')
+    key = prng.PRNGKey(0, 'cuda')
+    state, _ = base.reset(key, ids, torch.zeros_like(ids), params,
+                          tasks.HOVER_3D)
+    action = torch.full((4, 8), hover_motor_value(params), device='cuda')
+    for _ in range(100):
+        state, ts = base.step(state, action, key, ids, params, tasks.HOVER_3D)
+    z = ts.x[C.STATE_Z].cpu()
+    dz = ts.x[C.STATE_Z_DOT].cpu()
+    if (z + 10.0).abs().max() > 0.05 or dz.abs().max() > 0.02:
+        raise AssertionError(f'Mars hover anchor drifts: z {z}, dz {dz}')
+    evals = []
+    _, sec = _timed(lambda: ppo.train(
+        'Lander3DMars-v0', num_envs=MARS_ENVS, num_updates=MARS_UPDATES,
+        seed=3, cfg=ppo.PPOConfig(**MARS_PPO), log_every=20,
+        callback=lambda i, m: evals.append(m['eval_return'])))
+    first, best = evals[0], max(evals)
+    out['mars'] = {'hover_z_err': float((z + 10.0).abs().max()),
+                   'hover_dz': float(dz.abs().max()), 'evals': evals,
+                   'gain': best - first, 'train_s': sec}
+    log(f'[evo] Mars: the blade-element hover anchor holds 10 m for 100 '
+        f'steps (|z err| {out["mars"]["hover_z_err"]:.4f} m, |dz| '
+        f'{out["mars"]["hover_dz"]:.4f} m/s); PPO on Lander3DMars-v0 '
+        f'({MARS_ENVS} envs, {MARS_UPDATES} updates, graphed) in {sec:.1f} '
+        f's: eval returns {[round(e, 1) for e in evals]}, best - first '
+        f'{best - first:.1f} (must exceed {MARS_GAIN})')
+    if not best > first + MARS_GAIN:
+        raise AssertionError(f'no Mars learning: {evals}')
+
+
+def evo_phase():
+    """[evo]: the evolutionary learners and the experts on the card (see
+    the module docstring, phase 5f); returns its record, with the fused
+    kernel's launches in the phase (0: every path here steps the env under
+    a changing action)."""
+    from gym_copter_tpu_torch.ops import fused_rollout as fr
+
+    out = {}
+    fr.fused_rollout.launches = 0
+    t0 = time.perf_counter()
+    _champions(out)
+    for algo in ('neat', 'hyperneat'):
+        _evolution(out, algo)
+    _evolve_card_vs_cpu(out)
+    _experts(out)
+    _adaptive(out)
+    _mars(out)
+    out['launches'] = fr.fused_rollout.launches
+    out['phase_s'] = time.perf_counter() - t0
+    log(f'[evo] {out["phase_s"]:.1f} s; fused_rollout launches in the phase '
+        f'{out["launches"]}')
+    return out
+
+
 def _kernel_label(name):
     """A CUDA kernel's name without its template boilerplate: the kernel,
     and for PyTorch's elementwise kernels the op (its `*_kernel_cuda` or
@@ -925,6 +1268,8 @@ def main(argv=None):
     ap.add_argument('--dist-only', action='store_true',
                     help='run only the device, PPO, dist, ckpt and trace '
                          'phases')
+    ap.add_argument('--evo-only', action='store_true',
+                    help='run only the device phase and the evo phase')
     ap.add_argument('--tree', type=Path, default=None,
                     help='import gym_copter_tpu_torch from this checkout '
                          '(with --sweep-only, to time another version)')
@@ -942,6 +1287,9 @@ def main(argv=None):
         return 0
     if args.ppo_only:
         log(json.dumps({'ppo': ppo_phase()[0], 'card': smi}))
+        return 0
+    if args.evo_only:
+        log(json.dumps({'evo': evo_phase(), 'card': smi}))
         return 0
     if args.dist_only:
         _, step, ts = ppo_phase()
@@ -961,6 +1309,8 @@ def main(argv=None):
     trace_out = trace_phase(step, ts)
     log(json.dumps({'dist': dist_out, 'ckpt': ckpt_out, 'trace': trace_out,
                     'card': smi}))
+    evo_out = evo_phase()
+    log(json.dumps({'evo': evo_out, 'card': smi}))
     times = timing_phase(main, straight, max_mhz)
     log(f'[time] card: {smi}')
     log(json.dumps({'timings': times, 'card': smi}))
@@ -972,7 +1322,8 @@ def main(argv=None):
         'launches': launches['fused_rollout'],
         'launches_by_path': {'main': launches['fused_rollout'],
                              'ppo': ppo_out['launches']['fused_rollout'],
-                             'dist': dist_out['launches']},
+                             'dist': dist_out['launches'],
+                             'evo': evo_out['launches']},
         'lanes': times['lanes'],
         'bit_exact': True,
         'max_abs_err': max(parity_err, main_err),

@@ -1,9 +1,9 @@
-"""Carry parameters, env state and PPO train state across from the JAX
-package.
+"""Carry parameters, env state, PPO train state and evolved genomes
+across from the JAX package.
 
 No function here imports JAX: a JAX `EnvParams` is read through its
 NamedTuple fields, and arrays (EnvState leaves, PPO params pytrees, optax
-states) through `np.asarray`.
+states, genomes) through `np.asarray`.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from gym_copter_tpu_torch.core.types import (EnvParams, LanderRewardParams,
                                              WorldParams)
 from gym_copter_tpu_torch.envs.base import EnvState
 from gym_copter_tpu_torch.learn import optim
+from gym_copter_tpu_torch.learn.hyperneat import CPPNGenome
+from gym_copter_tpu_torch.learn.neuroevolution import Genome
 from gym_copter_tpu_torch.learn.ppo import ActorCritic, TrainState
 
 _INT_FIELDS = ('status', 'ticks', 'steps', 'episode')
@@ -143,3 +145,42 @@ def train_state_from_numpy(ts, device=None, dtype=None) -> TrainState:
         obs=_tensor(ts.obs, device, dtype),
         key=_tensor(np.asarray(ts.key).astype(np.int64), device),
         update_idx=_tensor(ts.update_idx, device, torch.int32))
+
+
+def _fields(g, cls):
+    """The fields of cls from g: a path to an `.npz`, a mapping (a dict, an
+    NpzFile) or a NamedTuple (a JAX genome)."""
+    if isinstance(g, str) or hasattr(g, '__fspath__'):
+        with np.load(g) as f:
+            return {k: np.array(f[k]) for k in cls._fields}
+    if hasattr(g, '_asdict'):
+        g = g._asdict()
+    return {k: g[k] for k in cls._fields}
+
+
+def genome_from_numpy(g, device=None, dtype=None) -> Genome:
+    """The port's `neuroevolution.Genome` from a JAX genome, a dict of its
+    fields or the `.npz` that `scripts/neat_evolve.py --save-genome`
+    writes.  Floats keep their dtype unless `dtype` is given; device
+    defaults to the card."""
+    device = resolve_device(device)
+    return Genome(**{k: _tensor(v, device, dtype)
+                     for k, v in _fields(g, Genome).items()})
+
+
+def cppn_from_numpy(g, device=None, dtype=None) -> CPPNGenome:
+    """The port's `hyperneat.CPPNGenome` from a JAX CPPN genome, a dict of
+    its fields or its `.npz`; `act_sel` becomes int32."""
+    device = resolve_device(device)
+    return CPPNGenome(**{
+        k: _tensor(v, device, torch.int32 if k == 'act_sel' else dtype)
+        for k, v in _fields(g, CPPNGenome).items()})
+
+
+def genome_to_numpy(g) -> dict:
+    """A genome (`Genome` or `CPPNGenome`) as the JAX layout's dict of numpy
+    arrays, in field order, as `np.savez` stores it."""
+    return {k: v.detach().cpu().numpy() for k, v in g._asdict().items()}
+
+
+cppn_to_numpy = genome_to_numpy

@@ -9,10 +9,13 @@ import torch
 
 def tree_map(fn, *trees):
     """fn over the tensors of matching nested structures; returns the same
-    structure of its results."""
+    structure of its results.  None is an empty tree (a stateless policy's
+    state)."""
     t = trees[0]
     if isinstance(t, torch.Tensor):
         return fn(*trees)
+    if t is None:
+        return None
     if hasattr(t, 'from_leaves'):
         return type(t).from_leaves(tree_map(fn, *(x.leaves() for x in trees)))
     if isinstance(t, dict):

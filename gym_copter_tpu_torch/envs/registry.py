@@ -130,14 +130,21 @@ def make(name: str, num_envs: int = 1, params: Optional[EnvParams] = None,
          device=None) -> CopterEnv:
     """Factory: `make('Lander3D-v0', num_envs=4096)` on the card, or
     `make(..., device='cpu')`."""
+    spec, params = resolve_params(name, params)
+    return CopterEnv(spec, params=params, num_envs=num_envs, seed=seed,
+                     env_id_offset=env_id_offset, dtype=dtype, device=device)
+
+
+def resolve_params(name: str, params: Optional[EnvParams] = None):
+    """(TaskSpec, EnvParams) of env `name`: the given params, else the env's
+    preset, else the default vehicle."""
     if name not in tasks.ALL_TASKS:
         raise KeyError(
             f'Unknown env {name!r}; available: {sorted(tasks.ALL_TASKS)}')
-    if params is None and name in tasks.PRESET_PARAMS:
-        params = tasks.PRESET_PARAMS[name]()
-    return CopterEnv(tasks.ALL_TASKS[name], params=params, num_envs=num_envs,
-                     seed=seed, env_id_offset=env_id_offset, dtype=dtype,
-                     device=device)
+    if params is None:
+        preset = tasks.PRESET_PARAMS.get(name)
+        params = preset() if preset is not None else default_params()
+    return tasks.ALL_TASKS[name], params
 
 
 def list_envs():

@@ -43,6 +43,7 @@ from torch import nn
 from gym_copter_tpu_torch.control.heuristics import hover_motor_value
 from gym_copter_tpu_torch.core import prng
 from gym_copter_tpu_torch.core.device import div, resolve_device
+from gym_copter_tpu_torch.core.graph import Graph
 from gym_copter_tpu_torch.core.tree import tree_map
 from gym_copter_tpu_torch.core.types import EnvParams
 from gym_copter_tpu_torch.envs import base
@@ -261,41 +262,6 @@ METRICS = ('reward_per_step', 'episode_return_proxy', 'done_rate',
            'pg_loss', 'v_loss', 'entropy', 'approx_kl')
 
 
-class _Graph:
-    """`fn` as one CUDA graph, captured at the first call.  The inputs are
-    copied into static buffers (skipped for a buffer passed back as itself),
-    the graph replays, and the static outputs are returned: a caller that
-    keeps them past the next replay clones them.  Warm-up runs on a side
-    stream before the capture, as torch's whole-network capture example
-    does; it also fills the constant caches (`base._const`), since a copy
-    from the host cannot be captured."""
-
-    def __init__(self, fn: Callable, warmup: int):
-        self.fn, self.warmup = fn, warmup
-        self.graph = None
-
-    def _capture(self, inputs):
-        self.inputs = tree_map(torch.clone, inputs)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(self.warmup):
-                self.fn(*self.inputs)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.outputs = self.fn(*self.inputs)
-        self.graph = graph
-
-    def __call__(self, *inputs):
-        if self.graph is None:
-            self._capture(inputs)
-        tree_map(lambda s, x: None if s is x else s.copy_(x), self.inputs,
-                 inputs)
-        self.graph.replay()
-        return self.outputs
-
-
 class TrainStep:
     """One PPO update (rollout, GAE, epochs x minibatches of clipped-loss
     Adam steps) as `make_train_step` returns it: `step(ts) -> (ts,
@@ -327,9 +293,9 @@ class TrainStep:
             raise ValueError(f'minibatch of {mb} transitions does not split '
                              f'into {self.world} equal shares')
         # the lambdas read the phase methods at capture time
-        self.rollout_graph = _Graph(lambda *a: self.rollout(*a, 1), warmup=1)
-        self.gae_graph = _Graph(lambda *a: self.advantages(*a), warmup=1)
-        self.update_graph = _Graph(lambda *a: self.update(*a), warmup=3)
+        self.rollout_graph = Graph(lambda *a: self.rollout(*a, 1), warmup=1)
+        self.gae_graph = Graph(lambda *a: self.advantages(*a), warmup=1)
+        self.update_graph = Graph(lambda *a: self.update(*a), warmup=3)
 
     # -- the three phases, as pure functions of tensors -------------------
 
@@ -642,7 +608,7 @@ def make_eval_fn(env_params: EnvParams, spec: TaskSpec, cfg: PPOConfig,
                 obs = ts.obs
         return env_state, obs, total, done_seen
 
-    graph = _Graph(steps, warmup=1)
+    graph = Graph(steps, warmup=1)
 
     def evaluate(params: ActorCritic, graphed: Optional[bool] = None):
         leaves = params.leaves()
@@ -678,14 +644,10 @@ def train(env_name: str = 'Hover3D-v0', num_envs: int = 1024,
     parameters and optimizer state start from rank 0's.  Rank 0 evaluates
     and returns the history; the others return an empty one.  A gloo group
     on the card raises, since its collectives cannot be graphed."""
-    from gym_copter_tpu_torch.envs import tasks as task_registry
-    from gym_copter_tpu_torch.envs.registry import default_params
+    from gym_copter_tpu_torch.envs.registry import resolve_params
 
     device = resolve_device(device)
-    spec = task_registry.ALL_TASKS[env_name]
-    if env_params is None:
-        preset = task_registry.PRESET_PARAMS.get(env_name)
-        env_params = preset() if preset is not None else default_params()
+    spec, env_params = resolve_params(env_name, env_params)
     cfg = resolve_minibatches(cfg, num_envs)
     rank, world = sharding.world_of(group)
     lo, hi = sharding.env_columns(num_envs, rank, world)

@@ -10,9 +10,9 @@ The cases, shared with `chip_smoke.py`, are in tests/torch_cuda_cases.py:
 every task kind, with and without random resets, Lander3D at 4096 envs,
 and batches that are not a multiple of 128 or of 8, each at every
 lanes-per-env choice (1, 4).  Kernel and plain version must agree bit
-for bit in every field.  The PPO, sharding, checkpoint and profiling tests
-at the end hold the graphed paths against their eager or one-rank
-counterparts on the card.
+for bit in every field.  The PPO, sharding, checkpoint, profiling,
+evolution, adaptive and expert tests after them hold the graphed paths
+against their eager, one-rank or CPU counterparts on the card.
 """
 
 import pytest
@@ -25,6 +25,7 @@ from gym_copter_tpu_torch.envs import tasks
 from gym_copter_tpu_torch.envs.registry import CopterEnv
 from gym_copter_tpu_torch.ops import fused_rollout as fr
 from gym_copter_tpu_torch.core import prng
+from gym_copter_tpu_torch.core.tree import tree_map
 from gym_copter_tpu_torch.learn import ppo
 from torch_cuda_cases import (compare, reset_state, run_kernel, scenarios,
                               state_diff, state_tensors, train_state_to)
@@ -263,6 +264,115 @@ def test_trace_of_a_graphed_step_holds_kernels(tmp_path):
         step(ts)
     out = profiling.device_busy(str(tmp_path / profiling.TRACE_FILE))
     assert out['kernels'] > 100 and 0 < out['busy_share'] <= 1
+
+
+@pytest.mark.cuda
+def test_graphed_fitness_equals_eager():
+    """NEAT's fitness through its one-step graph (Lander3D, 8 genomes x 4
+    episodes, 200 steps), twice with two episodes, against the eager loop:
+    per-episode returns equal bit for bit."""
+    from gym_copter_tpu_torch.learn import neuroevolution as ne
+
+    device = _card()
+    cfg = ne.NeatConfig(pop_size=8, episode_reps=4, max_steps=200)
+    genome = ne.init_population(prng.PRNGKey(0, device), 10, 4, cfg)
+    fit = ne.make_fitness_fn('Lander3D-v0', cfg, return_episodes=True)
+    for episode in (0, 5):
+        want = fit(genome, episode, graphed=False)
+        assert torch.equal(fit(genome, episode), want)
+    assert fit.graph.graph is not None
+
+
+@pytest.mark.cuda
+def test_graphed_adaptive_run_equals_eager():
+    """The adaptive controller through its one-step graph (the wind sweep,
+    300 steps) against the eager loop: every history and the weights
+    equal bit for bit."""
+    from gym_copter_tpu_torch.learn import adaptive
+
+    _card()
+    params = EnvParams(vehicle=vehicles.DJI_PHANTOM)
+    winds = [-4.0, -2.0, 0.0, 2.0, 4.0]
+    want = adaptive.run(params, winds, 300, graphed=False)
+    got = adaptive.run(params, winds, 300)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_evolve_on_card_matches_cpu():
+    """One float32 evolve of 32 genomes from the same population, tied
+    fitness and key on the card and on the CPU: tournament parents,
+    crossover flags, elites and every mask equal; weights within 1e-5 (the
+    card's and the CPU's `normal` differ in the last bits)."""
+    from gym_copter_tpu_torch.learn import neuroevolution as ne
+
+    device = _card()
+    cpu = torch.device('cpu')
+    cfg = ne.NeatConfig(pop_size=32)
+    genome = ne.init_population(prng.PRNGKey(0, cpu), 10, 4, cfg)
+    fit = torch.arange(32, dtype=torch.float32) % 5
+    on_card = tree_map(lambda x: x.to(device), genome)
+    for a, b in zip(ne.parents(cfg, fit, prng.PRNGKey(7, cpu), torch.float32),
+                    ne.parents(cfg, fit.to(device), prng.PRNGKey(7, device),
+                               torch.float32)):
+        assert torch.equal(a, b.cpu())
+    want = ne.make_evolve_fn(cfg)(genome, fit, prng.PRNGKey(7, cpu))
+    got = ne.make_evolve_fn(cfg)(on_card, fit.to(device),
+                                 prng.PRNGKey(7, device))
+    for name, a, b in zip(want._fields, want, got):
+        if name.startswith('m'):
+            assert torch.equal(a, b.cpu()), name
+        else:
+            torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('env_name', ['Lander3D-v0', 'Hover2D-v0',
+                                      'Lander3DSimple-v0'])
+def test_graphed_expert_rollout_equals_eager(env_name):
+    """An expert's closed loop through its one-step graph (256 envs, 300
+    steps) against the eager loop: totals, done flags and end states
+    equal bit for bit."""
+    from gym_copter_tpu_torch.control import heuristics
+
+    _card()
+    want = heuristics.run_expert(env_name, 256, 300, graphed=False)
+    got = heuristics.run_expert(env_name, 256, 300)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_capture_survives_garbage_graphs():
+    """Captured graphs that are garbage in reference cycles (fitness
+    functions dropped by their caller) are not freed in the middle of
+    another capture, which would invalidate it: Graph collects them before
+    it captures.  Here the collector runs inside the captured function."""
+    import gc
+
+    from gym_copter_tpu_torch.core.graph import Graph
+    from gym_copter_tpu_torch.learn import neuroevolution as ne
+
+    device = _card()
+    cfg = ne.NeatConfig(pop_size=4, episode_reps=2, max_steps=3)
+    genome = ne.init_population(prng.PRNGKey(0, device), 10, 4, cfg)
+
+    def collecting(x):
+        y = x * 2.0
+        gc.collect()
+        return y + 1.0
+
+    enabled = gc.isenabled()
+    gc.disable()  # the dropped graphs stay uncollected until the capture
+    try:
+        for _ in range(2):
+            ne.make_fitness_fn('Lander3D-v0', cfg)(genome, 0)
+        out = Graph(collecting, warmup=0)(torch.ones(4, device=device))
+    finally:
+        if enabled:
+            gc.enable()
+    assert torch.equal(out, torch.full((4,), 3.0, device=device))
 
 
 @pytest.mark.cuda

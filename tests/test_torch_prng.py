@@ -57,8 +57,9 @@ def test_uniform_matches_jax(dtype_j, dtype_t, bound):
 
 
 def test_uniform_rejects_asymmetric_bounds():
+    """Bounds other than [0, m) and [-m, m) raise."""
     with pytest.raises(ValueError, match='symmetric'):
-        prng.uniform(prng.PRNGKey(0, 'cpu'), 3, 0.0, 1.0)
+        prng.uniform(prng.PRNGKey(0, 'cpu'), 3, 1.0, 2.0)
 
 
 @pytest.mark.parametrize('seed', [0, 42, 2 ** 31 + 5])
@@ -133,3 +134,32 @@ def test_column_draws_are_columns_of_the_whole_draw(cols):
                            prng.normal(key, (3, 700), dtype)[:, lo:hi])
     with pytest.raises(ValueError, match='columns'):
         prng.random_bits(key, (3, 700), (600, 701))
+
+
+@pytest.mark.parametrize('x64', [True, False], ids=['x64', 'x32'])
+@pytest.mark.parametrize('shape', [(7,), (5, 13), (3, 4, 6)])
+def test_learner_draws_match_jax(x64, shape):
+    """The evolutionary learners' draws for one key over a shape: uniform
+    on [0, 1), bernoulli and randint, bit-equal to `jax.random` with x64
+    on (float64 uniforms, 64-bit randint words) and off (float32, 32-bit),
+    for spans that are and are not powers of two, and spans above 2**16,
+    where JAX's 32-bit multiplier (2**16 mod span)**2 wraps."""
+    dtype = torch.float64 if x64 else torch.float32
+    bits = 64 if x64 else 32
+    with jax.enable_x64(x64):
+        for seed in (0, 3, 2 ** 31 + 5):
+            key_j, key_t = jax.random.PRNGKey(seed), prng.PRNGKey(seed, 'cpu')
+            want = np.asarray(jax.random.uniform(key_j, shape))
+            got = prng.uniform(key_t, shape, dtype=dtype).numpy()
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+            for p in (0.3, 0.75, 2.0 / 13):
+                np.testing.assert_array_equal(
+                    prng.bernoulli(key_t, p, shape, dtype).numpy(),
+                    np.asarray(jax.random.bernoulli(key_j, p, shape)))
+            for lo, hi in ((0, 3), (0, 4), (0, 960), (5, 100_000),
+                           (0, 2 ** 30 + 3)):
+                np.testing.assert_array_equal(
+                    prng.randint(key_t, shape, lo, hi, bits).numpy(),
+                    np.asarray(jax.random.randint(key_j, shape, lo, hi)),
+                    err_msg=f'{bits}-bit randint [{lo}, {hi})')

@@ -89,3 +89,23 @@ def train_world(rank, world, group, device, kw):
                             callback=lambda i, m: None, device=device,
                             group=group)
     return history, ts.params.leaves()
+
+
+def fitness_world(rank, world, group, device, genome, cfg_kw, episode):
+    """The NEAT fitness of the float64 `genome` population on Lander2D-v0,
+    sharded over the world: (every rank's (P,) fitness, the error that a
+    population the world does not divide raises)."""
+    import dataclasses
+
+    from gym_copter_tpu_torch.learn import neuroevolution as ne
+
+    cfg = ne.NeatConfig(**cfg_kw)
+    fit = ne.make_fitness_fn('Lander2D-v0', cfg, group=group,
+                             device=device)(genome, episode)
+    try:
+        ne.make_fitness_fn('Lander2D-v0', dataclasses.replace(
+            cfg, pop_size=cfg.pop_size + 1), group=group, device=device)
+        error = None
+    except ValueError as e:
+        error = str(e)
+    return fit, error
