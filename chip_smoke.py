@@ -59,6 +59,20 @@ Phases, each printed before the last line:
      adaptive controller over the wind sweep for 6000 steps, held to
      tests/test_adaptive.py's; the Mars hover anchor and the Mars PPO
      learning smoke of tests/test_mars.py; one {"evo": ...} line;
+  5g. [gym]: the user-facing surface.  The float64 env on the card
+     (Lander-v0, Lander3D-v0, Hover3D-v0, 4 envs x 1000 steps through
+     auto-resets) against the numpy oracle (compat/numpy_oracle.py): done
+     flags and status equal, the largest gap held to 1e-9; the Gymnasium
+     adapter's B = 1 core (compat/single.py) over one Lander-v0 episode,
+     graphed and eagerly (bit-equal), us per step of each, its return
+     against the CPU's, and a float64 legacy-seeding episode;
+     VisualCopterEnv at 4096 Lander3D envs (vision at res 16 and 64, DVS at
+     16) as one-step graphs equal to the eager steps over 100 steps, with
+     ms per step beside the env step alone, images/s and graph nodes, and
+     the res-16 pixels that differ between the card and the CPU; the
+     demos' main() (lander with --vision --save, --dvs, --freeze; hover;
+     target) with their totals and seconds; the fused kernel's launches in
+     the phase (0); one {"gym": ...} line;
   6. times with CUDA events after warm-up: the kernel's device time at the
      main path's shape, with the wrapper's host time apart; the kernel at
      1024, 4096, 8192, 12,288, 16,384 and 65,536 envs at every lanes-per-env
@@ -86,6 +100,10 @@ runs only phase 1 and phases 5b-5e.
     python3 chip_smoke.py --evo-only
 
 runs only phase 1 and phase 5f.
+
+    python3 chip_smoke.py --gym-only
+
+runs only phase 1 and phase 5g.
 """
 
 import argparse
@@ -1205,6 +1223,243 @@ def evo_phase():
     return out
 
 
+# the [gym] phase: the float64 card env against the numpy oracle, a few
+# envs through auto-resets (largest gap allowed: the CPU contract's)
+GYM_ORACLE_ENVS, GYM_ORACLE_STEPS = 4, 1000
+GYM_ORACLE_TOL = 1e-9
+GYM_VISUAL_B = 4096
+GYM_VISUAL = (('vision', 16), ('vision', 64), ('dvs', 16))
+GYM_VISUAL_CHECK, GYM_VISUAL_TIMED, GYM_VISUAL_ROUNDS = 100, 200, 3
+# the B = 1 adapter's return on the card against the CPU's, float32
+GYM_SINGLE_RTOL = 1e-5
+
+
+def _gym_oracle(out):
+    cases = _cases()
+    device = torch.device('cuda')
+    out['oracle'] = {}
+    for name in ('Lander-v0', 'Lander3D-v0', 'Hover3D-v0'):
+        (gap, ended), sec = _timed(lambda: cases.oracle_gap(
+            name, GYM_ORACLE_ENVS, GYM_ORACLE_STEPS, device))
+        out['oracle'][name] = {'max_gap': gap, 'episodes_ended': ended,
+                               'seconds': sec}
+        log(f'[gym] oracle: {name} float64 on the card, {GYM_ORACLE_ENVS} '
+            f'envs x {GYM_ORACLE_STEPS} steps ({ended} episodes ended): '
+            f'done and status equal, largest gap {gap:.3e} (limit '
+            f'{GYM_ORACLE_TOL:g}); {sec:.1f} s')
+        if not gap <= GYM_ORACLE_TOL or ended == 0:
+            raise AssertionError(f'{name}: card env against the oracle: '
+                                 f'gap {gap}, {ended} episodes ended')
+
+
+def _gym_single(out):
+    """The adapter's B = 1 core (compat/single.py) on the card."""
+    import numpy as np
+
+    from gym_copter_tpu_torch.compat.single import SingleCopterEnv
+    from gym_copter_tpu_torch.control.heuristics import MOTORVAL
+
+    cases = _cases()
+    action = np.full(4, MOTORVAL, np.float32)
+    graphed, g_s = cases.single_episode(SingleCopterEnv('Lander-v0'), action)
+    eager, e_s = cases.single_episode(
+        SingleCopterEnv('Lander-v0', graphed=False), action)
+    cpu, c_s = cases.single_episode(SingleCopterEnv('Lander-v0',
+                                                    device='cpu'), action)
+    total = sum(r for _, r, _ in graphed)
+    cpu_total = sum(r for _, r, _ in cpu)
+    equal = cases.same_episode(graphed, eager)
+    legacy, l_s = cases.single_episode(
+        SingleCopterEnv('Lander-v0', legacy_seeding=True,
+                        dtype=torch.float64), action.astype(np.float64))
+    out['single'] = {'steps': len(graphed), 'return': total,
+                     'cpu_return': cpu_total, 'graphed_equals_eager': equal,
+                     'graphed_us': g_s * 1e6, 'eager_us': e_s * 1e6,
+                     'cpu_us': c_s * 1e6, 'legacy_f64_steps': len(legacy),
+                     'legacy_f64_return': sum(r for _, r, _ in legacy),
+                     'legacy_f64_us': l_s * 1e6}
+    log(f'[gym] single env, Lander-v0 at {MOTORVAL}: {len(graphed)} steps, '
+        f'return {total:.6f} (CPU {cpu_total:.6f}); graphed '
+        f'{g_s * 1e6:.1f} us per step, eager {e_s * 1e6:.1f} (CPU '
+        f'{c_s * 1e6:.1f}); graphed equals eager: {equal}')
+    log(f'[gym] single env, float64 legacy seeding (np.random kick): '
+        f'{len(legacy)} steps, return {out["single"]["legacy_f64_return"]:.6f}'
+        f', {l_s * 1e6:.1f} us per step')
+    if not equal:
+        raise AssertionError('the graphed B = 1 step differs from the eager')
+    if (abs(total - cpu_total) > GYM_SINGLE_RTOL * abs(cpu_total)
+            or len(graphed) != len(cpu) or not legacy[-1][2]):
+        raise AssertionError(f'B = 1 episode: {out["single"]}')
+
+
+def _gym_visual(out):
+    """VisualCopterEnv at 4096 Lander3D envs, graphed: equal to eager over
+    GYM_VISUAL_CHECK steps; then, in GYM_VISUAL_ROUNDS turns over all
+    configurations, ms per step (median of the rounds) against the env step
+    alone in the same kind of graph; images/s and graph nodes per step."""
+    from gym_copter_tpu_torch.control.heuristics import MOTORVAL
+    from gym_copter_tpu_torch.core.graph import Graph
+    from gym_copter_tpu_torch.envs import registry
+
+    cases = _cases()
+    device = torch.device('cuda')
+    b = GYM_VISUAL_B
+
+    def replay_ms(graph, carry):
+        n = len(carry)
+        for _ in range(3):
+            carry = graph(*carry)[:n]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(GYM_VISUAL_TIMED):
+            carry = graph(*carry)[:n]
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / GYM_VISUAL_TIMED, carry
+
+    env = registry.make('Lander3D-v0', num_envs=b, seed=0)
+    action = torch.full((4, b), MOTORVAL, device=device)
+
+    def env_step(state, acc):
+        state, ts = env.step(state, action)
+        return state, acc + ts.reward.sum()
+
+    carry = (env.reset()[0], torch.zeros((), device=device))
+    runs = {'env': [Graph(env_step, warmup=1), carry,
+                    _graph_nodes(env_step, carry, warmup=1)[0], []]}
+    out['visual'] = {'envs': b}
+    for kind, res in GYM_VISUAL:
+        differ, graph, carry = cases.visual_graphed_vs_eager(
+            'Lander3D-v0', b, res, kind == 'dvs', GYM_VISUAL_CHECK, device)
+        log(f'[gym] visual: {kind} res {res}: graphed images equal the '
+            f'eager ones in {GYM_VISUAL_CHECK - differ} of '
+            f'{GYM_VISUAL_CHECK} steps')
+        if differ:
+            raise AssertionError(f'{kind} res {res}: graphed images differ')
+        carry = tuple(carry)
+        runs[f'{kind}{res}'] = [graph, carry,
+                                _graph_nodes(graph.fn, carry, warmup=1)[0],
+                                []]
+    for _ in range(GYM_VISUAL_ROUNDS):
+        for run in runs.values():
+            ms, run[1] = replay_ms(run[0], run[1])
+            run[3].append(ms)
+    env_ms = sorted(runs['env'][3])[GYM_VISUAL_ROUNDS // 2]
+    for name, (_, _, nodes, times) in runs.items():
+        ms = sorted(times)[GYM_VISUAL_ROUNDS // 2]
+        out['visual'][name] = {'ms': ms, 'ms_rounds': times,
+                               'images_per_s': b / ms * 1e3, 'nodes': nodes}
+        log(f'[gym] visual: {name} at {b} envs: {ms:.4f} ms per step '
+            f'({ms - env_ms:+.4f} over the env step; rounds '
+            f'{", ".join(f"{t:.4f}" for t in times)}), '
+            f'{b / ms * 1e3:.4g} {"env steps" if name == "env" else "images"}'
+            f'/s, {nodes} graph nodes')
+    del runs
+    _gym_pixels(out, device)
+
+
+def _gym_pixels(out, device):
+    """Res-16 images of 4096 random poses on the card and on the CPU: the
+    pixels that differ, and why (CUDA's float32 sin/cos round some angles
+    apart from the CPU's, which moves a homography entry)."""
+    import numpy as np
+
+    from gym_copter_tpu_torch.sensors.vision import RAD_PER_DEG, VisionSensor
+
+    rng = np.random.default_rng(0)
+    poses = np.zeros((6, GYM_VISUAL_B), np.float32)
+    poses[0:2] = rng.uniform(-3, 3, (2, GYM_VISUAL_B))
+    poses[2] = rng.uniform(1, 10, GYM_VISUAL_B)
+    poses[3:6] = rng.uniform(-30, 30, (3, GYM_VISUAL_B))
+    host = torch.from_numpy(poses)
+    card = VisionSensor(res=16).get_images(host.to(device)).cpu()
+    cpu = VisionSensor(res=16, device='cpu').get_images(host)
+    pixels = int((card != cpu).sum())
+    rad = host[3:6] * RAD_PER_DEG
+    rad_card = host[3:6].to(device) * RAD_PER_DEG
+    n_rad = int((rad_card.cpu() != rad).sum())
+    trig = int((torch.sin(rad_card).cpu() != torch.sin(rad)).sum()
+               + (torch.cos(rad_card).cpu() != torch.cos(rad)).sum())
+    out['pixels_card_vs_cpu'] = {'pixels': pixels, 'of': card.numel(),
+                                 'radians_differing': n_rad,
+                                 'sin_cos_differing': trig,
+                                 'of_angles': 2 * rad.numel()}
+    log(f'[gym] res-16 images of {GYM_VISUAL_B} random poses, card against '
+        f'CPU: {pixels} of {card.numel()} pixels differ; the degree-to-'
+        f'radian multiply differs on {n_rad} of {rad.numel()} angles, CUDA '
+        f'and CPU sin/cos on {trig} of the {2 * rad.numel()} values (the '
+        f'[traps] rounding)')
+    if n_rad:
+        raise AssertionError('radians round differently on the card')
+
+
+def _gym_demos(out):
+    """The demos' main() in-process on the card, their prints kept."""
+    import contextlib
+    import io
+    import tempfile
+
+    from gym_copter_tpu_torch.demos import hover, lander, target
+
+    def run(label, fn, argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = fn(argv)
+        sec = time.perf_counter() - t0
+        last = [ln for ln in buf.getvalue().splitlines() if ln][-1]
+        out['demos'][label] = {'result': result, 'seconds': sec,
+                               'last_line': last}
+        log(f'[gym] demo {label}: {sec:.2f} s; {last}')
+        return result, buf.getvalue()
+
+    out['demos'] = {}
+    with tempfile.TemporaryDirectory() as d:
+        csv = str(Path(d) / 'lander.csv')
+        total, text = run('lander --vision --res 16 --save', lander.main,
+                          ['--nodisplay', '--vision', '--res', '16',
+                           '--save', csv])
+        rows = len(Path(csv).read_text().splitlines())
+    cpu_total, _ = run('lander on the CPU', lander.main,
+                       ['--nodisplay', '--device', 'cpu'])
+    run('lander --dvs --res 16', lander.main,
+        ['--nodisplay', '--dvs', '--res', '16'])
+    run('lander --freeze', lander.main,
+        ['--nodisplay', '--freeze', '2,1,8,10,0'])
+    hover_total, _ = run('hover', hover.main, ['--nodisplay'])
+    run('target', target.main, ['--nodisplay'])
+    log(f'[gym] demo lander: return {total:.6f} on the card, '
+        f'{cpu_total:.6f} on the CPU; its CSV has {rows} lines')
+    if (abs(total - cpu_total) > GYM_SINGLE_RTOL * abs(cpu_total)
+            or rows < 100 or 'vision:' not in text
+            or not hover_total > 900):
+        raise AssertionError(f'demos: {out["demos"]}')
+
+
+def gym_phase(smi):
+    """[gym]: the user-facing surface on the card (the module docstring,
+    phase 5g); returns its record, with the fused kernel's launches in the
+    phase (0: every path here steps the env under a per-step action)."""
+    from gym_copter_tpu_torch.ops import fused_rollout as fr
+
+    out = {}
+    fr.fused_rollout.launches = 0
+    t0 = time.perf_counter()
+    _gym_oracle(out)
+    _gym_single(out)
+    _gym_visual(out)
+    _gym_demos(out)
+    out['launches'] = fr.fused_rollout.launches
+    out['phase_s'] = time.perf_counter() - t0
+    out['card'] = smi
+    log(f'[gym] {out["phase_s"]:.1f} s; fused_rollout launches in the phase '
+        f'{out["launches"]}')
+    if out['launches'] != 0:
+        raise AssertionError('the gym path launched the fused kernel')
+    return out
+
+
 def _kernel_label(name):
     """A CUDA kernel's name without its template boilerplate: the kernel,
     and for PyTorch's elementwise kernels the op (its `*_kernel_cuda` or
@@ -1270,6 +1525,8 @@ def main(argv=None):
                          'phases')
     ap.add_argument('--evo-only', action='store_true',
                     help='run only the device phase and the evo phase')
+    ap.add_argument('--gym-only', action='store_true',
+                    help='run only the device phase and the gym phase')
     ap.add_argument('--tree', type=Path, default=None,
                     help='import gym_copter_tpu_torch from this checkout '
                          '(with --sweep-only, to time another version)')
@@ -1291,6 +1548,9 @@ def main(argv=None):
     if args.evo_only:
         log(json.dumps({'evo': evo_phase(), 'card': smi}))
         return 0
+    if args.gym_only:
+        log(json.dumps({'gym': gym_phase(smi)}))
+        return 0
     if args.dist_only:
         _, step, ts = ppo_phase()
         log(json.dumps({'dist': dist_phase(step),
@@ -1311,6 +1571,8 @@ def main(argv=None):
                     'card': smi}))
     evo_out = evo_phase()
     log(json.dumps({'evo': evo_out, 'card': smi}))
+    gym_out = gym_phase(smi)
+    log(json.dumps({'gym': gym_out}))
     times = timing_phase(main, straight, max_mhz)
     log(f'[time] card: {smi}')
     log(json.dumps({'timings': times, 'card': smi}))
@@ -1323,7 +1585,8 @@ def main(argv=None):
         'launches_by_path': {'main': launches['fused_rollout'],
                              'ppo': ppo_out['launches']['fused_rollout'],
                              'dist': dist_out['launches'],
-                             'evo': evo_out['launches']},
+                             'evo': evo_out['launches'],
+                             'gym': gym_out['launches']},
         'lanes': times['lanes'],
         'bit_exact': True,
         'max_abs_err': max(parity_err, main_err),

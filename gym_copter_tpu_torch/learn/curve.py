@@ -8,8 +8,9 @@ scripts/train_curve.py, with its flags, defaults and JSON schema.
 Trains on the card (`--device cpu` for the CPU) for each seed and writes
 the deterministic-eval curves, the cross-seed final-window statistics, the
 wall seconds of each run, and the card's name and power limit as
-`nvidia-smi` reports them.  `--ckpt PATH` saves the last seed's params
-with `torch.save` (the port has no checkpoint module yet).
+`nvidia-smi` reports them.  `--ckpt PATH.npz` saves the last seed's whole
+TrainState through utils/checkpoint.py, in the JAX package's .npz layout,
+so that either package restores it.
 """
 
 import argparse
@@ -22,6 +23,7 @@ import torch
 
 from gym_copter_tpu_torch.core.device import resolve_device
 from gym_copter_tpu_torch.learn import ppo
+from gym_copter_tpu_torch.utils import checkpoint
 
 
 def card(device: torch.device):
@@ -97,7 +99,8 @@ def parser():
                    help='updates at the tail over which "final" is averaged')
     p.add_argument('--out', default='curve.json')
     p.add_argument('--ckpt', default=None,
-                   help='file for the last seed\'s params (torch.save)')
+                   help='.npz file for the last seed\'s whole TrainState '
+                        '(utils/checkpoint.py; restores in either package)')
     p.add_argument('--log-every', type=int, default=50)
     p.add_argument('--device', default=None,
                    help='torch device; default the card')
@@ -106,6 +109,8 @@ def parser():
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    if args.ckpt:
+        checkpoint.check_path(args.ckpt)
     device = resolve_device(args.device)
     runs, ts = [], None
     for seed in args.seeds:
@@ -158,8 +163,9 @@ def main(argv=None):
                             summary['final_window_mean_across_seeds'],
                             *summary['final_window_spread']))
     if args.ckpt and ts is not None:
-        torch.save(ts.params.state_dict(), args.ckpt)
-        print('params saved to', args.ckpt)
+        checkpoint.save(args.ckpt, ts, ppo.train_optimizer(resolved,
+                                                           args.updates))
+        print('checkpoint saved to', args.ckpt)
     return summary
 
 

@@ -627,6 +627,19 @@ def make_eval_fn(env_params: EnvParams, spec: TaskSpec, cfg: PPOConfig,
     return evaluate
 
 
+def train_optimizer(cfg: PPOConfig, num_updates: int) -> optim.ClipAdam:
+    """The optimizer `train` steps with: Adam at cfg.learning_rate, annealed
+    linearly over every optimizer step of `num_updates` updates where
+    cfg.anneal_lr says so.  cfg's minibatches must be resolved."""
+    lr = cfg.learning_rate
+    if cfg.anneal_lr:
+        lr = optim.linear_schedule(
+            init_value=cfg.learning_rate,
+            end_value=cfg.learning_rate * cfg.anneal_lr_floor,
+            transition_steps=num_updates * cfg.epochs * cfg.minibatches)
+    return optim.ClipAdam(cfg.max_grad_norm, lr)
+
+
 def train(env_name: str = 'Hover3D-v0', num_envs: int = 1024,
           num_updates: int = 200, seed: int = 0,
           cfg: PPOConfig = PPOConfig(), env_params: EnvParams = None,
@@ -655,15 +668,10 @@ def train(env_name: str = 'Hover3D-v0', num_envs: int = 1024,
     key = prng.PRNGKey(seed, device)
     base_key = prng.PRNGKey(seed + 1, device)
     env_ids = torch.arange(lo, hi, dtype=torch.int32, device=device)
-    optimizer = None
-    if cfg.anneal_lr:
-        schedule = optim.linear_schedule(
-            init_value=cfg.learning_rate,
-            end_value=cfg.learning_rate * cfg.anneal_lr_floor,
-            transition_steps=num_updates * cfg.epochs * cfg.minibatches)
-        optimizer = optim.ClipAdam(cfg.max_grad_norm, schedule)
     step, optimizer = make_train_step(env_params, spec, cfg, base_key,
-                                      env_ids, optimizer=optimizer,
+                                      env_ids,
+                                      optimizer=train_optimizer(cfg,
+                                                                num_updates),
                                       group=group)
     ts = init_train_state(key, env_params, spec, cfg, hi - lo, optimizer,
                           env_id_offset=lo)

@@ -34,7 +34,8 @@ from gym_copter_tpu_torch.learn import optim
 from gym_copter_tpu_torch.learn.ppo import ActorCritic, TrainState
 
 
-def _check_path(path: str) -> None:
+def check_path(path: str) -> None:
+    """Raises unless `path` names a .npz file."""
     if not path.endswith('.npz'):
         raise ValueError(f'{path!r}: the port writes .npz checkpoints only '
                          f'(the orbax directory format is not ported)')
@@ -68,7 +69,7 @@ def _slots(ts: TrainState, optimizer: optim.ClipAdam):
 def save(path: str, ts: TrainState, optimizer: optim.ClipAdam) -> None:
     """Write `ts` to the .npz file `path` atomically; `optimizer` is the
     one whose state `ts.opt_state` is."""
-    _check_path(path)
+    check_path(path)
     arrays = {}
     for i, (t, dtype) in enumerate(_slots(ts, optimizer)):
         a = t.detach().cpu().numpy()
@@ -96,7 +97,7 @@ def restore(path: str, template: TrainState,
             optimizer: optim.ClipAdam) -> TrainState:
     """The TrainState saved in `path`, with the structure of `template` and
     every tensor on its template's device and dtype."""
-    _check_path(path)
+    check_path(path)
     slots = _slots(template, optimizer)
     with np.load(path) as data:
         if len(data.files) != len(slots):

@@ -344,6 +344,48 @@ def test_graphed_expert_rollout_equals_eager(env_name):
 
 
 @pytest.mark.cuda
+def test_card_env_matches_numpy_oracle():
+    """The float64 Lander3D env on the card, 4 envs x 300 steps of random
+    actions through auto-resets, each env beside its numpy oracle: done
+    flags and status equal, observations and rewards within 1e-9."""
+    from torch_cuda_cases import oracle_gap
+
+    gap, ended = oracle_gap('Lander3D-v0', 4, 300, _card())
+    assert ended > 0 and gap <= 1e-9
+
+
+@pytest.mark.cuda
+def test_graphed_single_env_equals_eager():
+    """The adapter's B = 1 core (compat/single.py): Lander-v0 episodes
+    through its one-step graph equal the eager episodes bit for bit, also
+    after reset(seed=) rekeys the captured env."""
+    import numpy as np
+
+    from gym_copter_tpu_torch.compat.single import SingleCopterEnv
+    from torch_cuda_cases import same_episode, single_episode
+
+    _card()
+    action = np.full(4, 1.625e-2, np.float32)
+    env = SingleCopterEnv('Lander-v0')
+    for seed in (0, 5):
+        graphed = single_episode(env, action, seed=seed)[0]
+        eager = single_episode(SingleCopterEnv('Lander-v0', graphed=False),
+                               action, seed=seed)[0]
+        assert graphed[-1][2] and same_episode(graphed, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dvs', [False, True])
+def test_graphed_visual_step_equals_eager(dvs):
+    """VisualCopterEnv at 4096 Lander3D envs x res 16: 20 steps through a
+    one-step graph give the eager steps' images bit for bit."""
+    from torch_cuda_cases import visual_graphed_vs_eager
+
+    assert visual_graphed_vs_eager('Lander3D-v0', 4096, 16, dvs, 20,
+                                   _card())[0] == 0
+
+
+@pytest.mark.cuda
 def test_capture_survives_garbage_graphs():
     """Captured graphs that are garbage in reference cycles (fitness
     functions dropped by their caller) are not freed in the middle of

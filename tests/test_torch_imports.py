@@ -1,0 +1,48 @@
+"""Importing the port's user-facing modules loads neither JAX nor the JAX
+package (the port's no-JAX rule; the GPU machine has no JAX)."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = [
+    'gym_copter_tpu_torch.compat.gym_adapter',
+    'gym_copter_tpu_torch.compat.single',
+    'gym_copter_tpu_torch.compat.numpy_oracle',
+    'gym_copter_tpu_torch.sensors.vision',
+    'gym_copter_tpu_torch.envs.visual',
+    'gym_copter_tpu_torch.render.csvlog',
+    'gym_copter_tpu_torch.render.hud',
+    'gym_copter_tpu_torch.render.threed',
+    'gym_copter_tpu_torch.render.twod',
+    'gym_copter_tpu_torch.demos.lander',
+    'gym_copter_tpu_torch.demos.hover',
+    'gym_copter_tpu_torch.demos.target',
+    'gym_copter_tpu_torch.demos.adaptive',
+    'gym_copter_tpu_torch.examples.althold',
+    'gym_copter_tpu_torch.examples.leap',
+    'gym_copter_tpu_torch.examples.pidctrl',
+    'gym_copter_tpu_torch.examples.simple_lander3d',
+    'gym_copter_tpu_torch.examples.takeoff',
+    'gym_copter_tpu_torch.examples.velhold',
+    'gym_copter_tpu_torch.examples.vsa_hover1d',
+    'gym_copter_tpu_torch.learn.td3',
+    'gym_copter_tpu_torch.learn.train_hover3d',
+]
+
+
+def test_imports_load_no_jax():
+    code = ('import importlib, sys\n'
+            f'for m in {MODULES!r}:\n'
+            '    importlib.import_module(m)\n'
+            'bad = sorted(m for m in sys.modules if m == "jax"\n'
+            '             or m.startswith(("jax.", "gym_copter_tpu."))\n'
+            '             or m == "gym_copter_tpu")\n'
+            'print(bad)\n')
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    r = subprocess.run([sys.executable, '-c', code], env=env,
+                       capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == '[]', r.stdout

@@ -139,3 +139,130 @@ def state_diff(a, b, what):
         elif not torch.equal(x, y):
             raise AssertionError(f'{what}: integer tensor {i} differs')
     return err
+
+
+# the oracle's motor maps by action size, as tests/test_env_parity.py and
+# tests/test_torch_oracle.py give them
+ORACLE_MOTOR_MAPS = {
+    1: lambda m: [m[0]] * 4,
+    2: lambda m: [m[0], m[1], m[1], m[0]],
+    3: lambda m: [m[0] - m[1] - m[2], m[0] + m[1] + m[2],
+                  m[0] + m[1] - m[2], m[0] - m[1] + m[2]],
+    4: lambda m: m,
+}
+
+
+def oracle_gap(name, b, num_steps, device, seed=0):
+    """The float64 env `name` on `device`, `b` envs for `num_steps` steps of
+    random actions through its auto-resets, each env beside its own
+    numpy oracle (compat/numpy_oracle.py) reset with the env's own kick
+    for each episode.  Raises where a done flag or status differs; returns
+    (largest absolute gap of observations and rewards, episodes ended)."""
+    import numpy as np
+
+    from gym_copter_tpu_torch.compat.numpy_oracle import OracleEnv
+    from gym_copter_tpu_torch.core import prng
+    from gym_copter_tpu_torch.envs import base, registry
+
+    spec, params = registry.resolve_params(name)
+    if spec.negate_obs or spec.kind == 'target':
+        raise ValueError(f'{name}: the oracle reads the state rows as is')
+    key = prng.PRNGKey(seed, device)
+    ids = torch.arange(b, dtype=torch.int32, device=device)
+    episode = torch.zeros(b, dtype=torch.int32, device=device)
+    state, obs = base.reset(key, ids, episode, params, spec,
+                            dtype=torch.float64)
+    rows = list(spec.obs_indices)
+
+    def kicks(ep):
+        return base._initial_forces(key, ids, ep, params,
+                                    torch.float64).cpu().numpy()
+
+    oracles = [OracleEnv(params, task_kind=spec.kind,
+                         obs_indices=spec.obs_indices,
+                         action_size=spec.action_size,
+                         motor_map=ORACLE_MOTOR_MAPS[spec.action_size])
+               for _ in range(b)]
+    force, obs = kicks(episode), obs.cpu().numpy()
+    gap = 0.0
+    for i, o in enumerate(oracles):
+        gap = max(gap, float(np.abs(obs[:, i] - o.reset(
+            perturb_force=force[:, i])[0]).max()))
+    rng = np.random.default_rng(seed)
+    ended = 0
+    for t in range(num_steps):
+        act = rng.uniform(0, 0.05, (spec.action_size, b))
+        state, ts = base.step(state, torch.from_numpy(act).to(device), key,
+                              ids, params, spec)
+        obs, reward, done, status, x = (v.cpu().numpy() for v in (
+            ts.obs, ts.reward, ts.done, ts.status, ts.x))
+        force = kicks(state.episode) if done.any() else None
+        for i, o in enumerate(oracles):
+            o_obs, o_rew, o_done, _, _ = o.step(act[:, i])
+            if bool(done[i]) != o_done or int(status[i]) != o.dyn.status:
+                raise AssertionError(
+                    f'{name} env {i} step {t}: done {bool(done[i])} status '
+                    f'{int(status[i])}, oracle {o_done} {o.dyn.status}')
+            gap = max(gap, abs(float(reward[i]) - o_rew),
+                      float(np.abs(x[rows, i] - o_obs).max()))
+            if o_done:
+                ended += 1
+                o_obs, _ = o.reset(perturb_force=force[:, i])
+                gap = max(gap, float(np.abs(obs[:, i] - o_obs).max()))
+    return gap, ended
+
+
+def single_episode(env, action, max_steps=2000, seed=0):
+    """One episode of `env` (compat/single.py) from reset(seed=seed) at a
+    constant action: ([(obs, reward, done)], seconds per step after the
+    first, which may capture a graph)."""
+    import time
+
+    env.reset(seed=seed)
+    out = [env.step(action)[:3]]
+    t0 = time.perf_counter()
+    while not out[-1][2] and len(out) < max_steps:
+        out.append(env.step(action)[:3])
+    return out, (time.perf_counter() - t0) / max(len(out) - 1, 1)
+
+
+def same_episode(a, b):
+    """Two single_episode records equal bit for bit."""
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        np.array_equal(x[0], y[0]) and x[1] == y[1] and x[2] == y[2]
+        for x, y in zip(a, b))
+
+
+def visual_graphed_vs_eager(name, b, res, dvs, num_steps, device):
+    """VisualCopterEnv over `b` envs of `name` at a constant thrust: the
+    same `num_steps` through a one-step CUDA graph and eagerly from one
+    reset.  Returns (steps whose images differ, the graph, its carry): the
+    graph's step consumes the images in a device-side sum."""
+    from gym_copter_tpu_torch.control.heuristics import MOTORVAL
+    from gym_copter_tpu_torch.core.graph import Graph
+    from gym_copter_tpu_torch.envs import registry
+    from gym_copter_tpu_torch.envs.visual import VisualCopterEnv
+    from gym_copter_tpu_torch.sensors.vision import DVS, VisionSensor
+
+    env = registry.make(name, num_envs=b, seed=0, device=device)
+    venv = VisualCopterEnv(env, dvs=dvs, sensor=(DVS if dvs else
+                                                 VisionSensor)(
+        res=res, device=device))
+    action = torch.full((env.action_size, b), MOTORVAL, device=device)
+
+    def step(vstate, acc):
+        vstate, ts, image = venv.step(vstate, action)
+        return vstate, acc + image.sum(), image
+
+    graph = Graph(step, warmup=1)
+    start = venv.reset()[0]
+    acc = torch.zeros((), device=device)
+    eager, graphed = (start, acc), (start, acc)
+    differ = 0
+    for _ in range(num_steps):
+        *eager, want = step(*eager)
+        *graphed, got = graph(*graphed)
+        differ += not torch.equal(want, got)
+    return differ, graph, graphed
