@@ -73,6 +73,16 @@ Phases, each printed before the last line:
      demos' main() (lander with --vision --save, --dvs, --freeze; hover;
      target) with their totals and seconds; the fused kernel's launches in
      the phase (0); one {"gym": ...} line;
+  5h. [multihost]: the PPO init from PRNGKey(0) on the card held to the JAX
+     package's recorded values, and the bf16-operand products on the card
+     against the CPU's (TF32 float32 products raise); then the multi-host
+     launcher (parallel/launch.py --coordinator, separate OS processes over
+     a TCP rendezvous on loopback) on Lander3D-v0 at the recipe for 3
+     updates, as (a) one host of one NCCL rank, graphed, 4096 envs, and
+     (b) two hosts of one gloo rank each sharing the card, eager, 2 x 2048
+     envs, (b)'s counts equal to (a)'s and its reward_per_step within
+     rtol 1e-3; the fused kernel launched on every rank; one
+     {"multihost": ...} line;
   6. times with CUDA events after warm-up: the kernel's device time at the
      main path's shape, with the wrapper's host time apart; the kernel at
      1024, 4096, 8192, 12,288, 16,384 and 65,536 envs at every lanes-per-env
@@ -104,6 +114,10 @@ runs only phase 1 and phase 5f.
     python3 chip_smoke.py --gym-only
 
 runs only phase 1 and phase 5g.
+
+    python3 chip_smoke.py --multihost-only
+
+runs only phase 1 and phase 5h.
 """
 
 import argparse
@@ -787,7 +801,8 @@ def dist_phase(plain):
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         group, device = sharding.init_world('nccl', 0, 1,
-                                            f'file://{tmp}/store')
+                                            f'file://{tmp}/store',
+                                            local_rank=0)
         try:
             env = gct.make('Lander3D-v0', num_envs=MAIN_B, device=device)
             sharded, _ = ppo.make_train_step(
@@ -1460,6 +1475,191 @@ def gym_phase(smi):
     return out
 
 
+# the first four weights of each layer's first row of the JAX package's
+# init_params(PRNGKey(0), 10, 4, PPOConfig(hidden=128), float32), Lander3D's
+# sizes, computed by gym_copter_tpu on the CPU; held to INIT_TOL, the CPU
+# tests' float32 tolerance (tests/test_torch_init_bf16.py)
+JAX_INIT_SEED0 = {
+    'actor': ((-0.0788092092, 0.0914243534, -0.0307461880, 0.1668087393),
+              (-0.1591252536, -0.0479176082, -0.1578520983, 0.1337676644),
+              (-0.000885984045, 0.00107619248, -0.00172114489,
+               0.000928333146)),
+    'critic': ((0.0254833326, -0.0948290601, -0.1376647353, -0.0443230122),
+               (-0.1695650220, -0.0726697370, 0.0390017331, -0.1521614194),
+               (0.0866849422, 0.1029118001, -0.1179335490, -0.1084475145)),
+}
+INIT_TOL = 1e-5
+# bf16 operands, float32 products: the card's products against the CPU's,
+# per layer (float32 sums in another order) and through the whole MLP (a
+# last-bit difference flips a bf16 rounding of the next layer's input;
+# the CPU against JAX: 9.7e-4)
+BF16_LAYER_TOL, BF16_MLP_TOL = 1e-5, 2e-3
+# [multihost]: the launcher's run at the recipe on Lander3D-v0, 3 updates;
+# two gloo hosts' reward_per_step against one NCCL host's, whose
+# gradients sum in another order
+MULTIHOST_UPDATES = 3
+MULTIHOST_RTOL = 1e-3
+
+
+def _init_bf16(out):
+    """The PPO init from a key on the card (drawn on the host) against JAX's
+    recorded values, and the bf16 products on the card against the CPU's;
+    TF32 float32 products raise."""
+    from gym_copter_tpu_torch.core import prng
+    from gym_copter_tpu_torch.learn import ppo
+
+    cfg = ppo.PPOConfig(hidden=128)
+    card = ppo.init_params(prng.PRNGKey(0, 'cuda'), 10, 4, cfg)
+    host = ppo.init_params(prng.PRNGKey(0, 'cpu'), 10, 4, cfg)
+    if not all(a.is_cuda and torch.equal(a.cpu(), b) for a, b in
+               zip(card.leaves(), host.leaves())):
+        raise AssertionError('the init on the card differs from the CPU\'s')
+    gap = max(abs(float(layer.w[0, j]) - want)
+              for net in ('actor', 'critic')
+              for layer, row in zip(getattr(card, net), JAX_INIT_SEED0[net])
+              for j, want in enumerate(row))
+    out['init_vs_jax_max_abs'] = gap
+    if gap > INIT_TOL:
+        raise AssertionError(f'init_params(PRNGKey(0)) is {gap} from JAX\'s')
+    log(f'[init] init_params(PRNGKey(0), 10, 4, hidden 128) float32 on the '
+        f'card: drawn on the host, equal to the CPU\'s; actor w[0][0, :4] '
+        f'{card.actor[0].w[0, :4].tolist()}; largest gap to JAX\'s recorded '
+        f'24 values {gap:.3g} (held to {INIT_TOL})')
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((10, 4096), generator=gen)
+    layer_gap = mlp_gap = f32_gap = 0.0
+    for layers in ppo.unflatten(host.leaves())[:2]:
+        dev = [(w.cuda(), b.cuda()) for w, b in layers]
+        xs = x
+        for (w, b), (wd, bd) in zip(layers, dev):
+            want = ppo.mlp_apply([(w, b)], xs, 'bfloat16')
+            got = ppo.mlp_apply([(wd, bd)], xs.cuda(), 'bfloat16').cpu()
+            layer_gap = max(layer_gap, float((got - want).abs().max()))
+            xs = torch.tanh(want)
+        for dt in ('bfloat16', None):
+            want = ppo.mlp_apply(layers, x, dt)
+            got = ppo.mlp_apply(dev, x.cuda(), dt).cpu()
+            g = float((got - want).abs().max())
+            if dt is None:
+                f32_gap = max(f32_gap, g)
+            else:
+                mlp_gap = max(mlp_gap, g)
+    out.update(bf16_layer_max_abs=layer_gap, bf16_mlp_max_abs=mlp_gap,
+               f32_mlp_max_abs=f32_gap)
+    if layer_gap > BF16_LAYER_TOL or mlp_gap > BF16_MLP_TOL:
+        raise AssertionError(f'bf16 products on the card: per layer '
+                             f'{layer_gap}, whole MLP {mlp_gap}')
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ppo.mlp_apply(dev, x.cuda())
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError('mlp_apply computed with TF32 allowed')
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f'[init] bf16 operands, float32 products on 4096 columns, card '
+        f'against CPU: per layer {layer_gap:.3g} (held to {BF16_LAYER_TOL}),'
+        f' actor and critic {mlp_gap:.3g} (held to {BF16_MLP_TOL}); the '
+        f'float32 path {f32_gap:.3g}; with TF32 allowed mlp_apply raises')
+
+
+def _launcher(hosts, envs_per_host, backend, timeout_s=600):
+    """`python -m gym_copter_tpu_torch.parallel.launch --coordinator` as
+    `hosts` host processes of one rank each over loopback, the card's
+    world; returns (process 0's report, seconds).  Any host that fails or
+    outlives the timeout fails the phase; every host is ended."""
+    import os
+    import socket
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f'{tmp}/report.json'
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, '-m', 'gym_copter_tpu_torch.parallel.launch',
+             '--coordinator', f'127.0.0.1:{port}', '--num-processes',
+             str(hosts), '--process-id', str(i), '--nproc-per-node', '1',
+             '--backend', backend, '--device', 'cuda', '--env',
+             'Lander3D-v0', '--envs-per-host', str(envs_per_host),
+             '--updates', str(MULTIHOST_UPDATES), '--timeout',
+             str(timeout_s), '--out', out],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i in range(hosts)]
+        try:
+            texts = [p.communicate(timeout=timeout_s + 60)[0]
+                     for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        seconds = time.perf_counter() - t0
+        bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            raise RuntimeError(f'launcher hosts {bad} failed:\n'
+                               + '\n'.join(texts[i][-4000:] for i in bad))
+        with open(out) as f:
+            report = json.load(f)
+    return report, seconds
+
+
+def multihost_phase():
+    """[multihost]: the JAX-keyed init and the bf16 products on the card;
+    then the multi-host launcher as (a) one host, one rank, NCCL, graphed,
+    4096 envs and (b) two hosts over loopback, gloo, sharing the card,
+    2 x 2048 envs, eager; (b) held to (a).  Returns its record, with the
+    fused kernel's launches on every rank of both."""
+    out = {}
+    _init_bf16(out)
+    runs = {}
+    for name, hosts, backend in (('nccl', 1, 'nccl'), ('gloo', 2, 'gloo')):
+        report, seconds = _launcher(hosts, MAIN_B // hosts, backend)
+        report['command_s'] = seconds
+        runs[name] = report
+        launches = [s['launches'] for s in report['per_shard']]
+        graphed = backend == 'nccl'
+        if (report['hosts'], report['ranks'], report['devices']) != (
+                hosts, hosts, hosts) or report['graphed'] != graphed \
+                or report['global_envs'] != MAIN_B \
+                or report['update_idx'] != MULTIHOST_UPDATES \
+                or not report['totals_equal_one_rank'] \
+                or min(launches) < 1:
+            raise AssertionError(f'[multihost] {name}: {report}')
+        log(f'[multihost] {hosts} host(s) x 1 rank, {backend}, '
+            f'{"graphed" if graphed else "eager"}, Lander3D-v0 at '
+            f'{MAIN_B} envs, the recipe, {MULTIHOST_UPDATES} updates: step '
+            f'{report["step_s"]:.4f} s = {report["env_steps_per_sec"]:.4g} '
+            f'env-steps/s; all-reduce of {report["allreduce_bytes"]} B '
+            f'{report["allreduce_ms"]:.3f} ms; reward_per_step '
+            f'{report["reward_per_step"]!r}; fused_rollout launches per '
+            f'rank {launches}; {seconds:.1f} s with the start-up')
+        log('[multihost] ' + json.dumps(report))
+    a, b = runs['nccl'], runs['gloo']
+    gaps = {k: abs(b['metrics'][k] - v) / max(abs(v), 1e-12)
+            for k, v in a['metrics'].items()}
+    out.update(runs=runs, metrics_rel_gap=gaps, launches=sum(
+        s['launches'] for r in runs.values() for s in r['per_shard']))
+    if abs(b['reward_per_step'] - a['reward_per_step']) > \
+            MULTIHOST_RTOL * abs(a['reward_per_step']):
+        raise AssertionError(f'two hosts\' reward_per_step '
+                             f'{b["reward_per_step"]} against one host\'s '
+                             f'{a["reward_per_step"]}')
+    log(f'[multihost] two gloo hosts against one NCCL host: global_envs and '
+        f'update_idx equal; relative gaps of the last update\'s metrics '
+        + ', '.join(f'{k} {v:.3g}' for k, v in gaps.items())
+        + f' (reward_per_step held to {MULTIHOST_RTOL}); fused_rollout '
+        f'launches {out["launches"]}')
+    return out
+
+
 def _kernel_label(name):
     """A CUDA kernel's name without its template boilerplate: the kernel,
     and for PyTorch's elementwise kernels the op (its `*_kernel_cuda` or
@@ -1527,6 +1727,9 @@ def main(argv=None):
                     help='run only the device phase and the evo phase')
     ap.add_argument('--gym-only', action='store_true',
                     help='run only the device phase and the gym phase')
+    ap.add_argument('--multihost-only', action='store_true',
+                    help='run only the device phase and the multihost '
+                         'phase')
     ap.add_argument('--tree', type=Path, default=None,
                     help='import gym_copter_tpu_torch from this checkout '
                          '(with --sweep-only, to time another version)')
@@ -1551,6 +1754,9 @@ def main(argv=None):
     if args.gym_only:
         log(json.dumps({'gym': gym_phase(smi)}))
         return 0
+    if args.multihost_only:
+        log(json.dumps({'multihost': multihost_phase(), 'card': smi}))
+        return 0
     if args.dist_only:
         _, step, ts = ppo_phase()
         log(json.dumps({'dist': dist_phase(step),
@@ -1573,6 +1779,8 @@ def main(argv=None):
     log(json.dumps({'evo': evo_out, 'card': smi}))
     gym_out = gym_phase(smi)
     log(json.dumps({'gym': gym_out}))
+    multihost_out = multihost_phase()
+    log(json.dumps({'multihost': multihost_out, 'card': smi}))
     times = timing_phase(main, straight, max_mhz)
     log(f'[time] card: {smi}')
     log(json.dumps({'timings': times, 'card': smi}))
@@ -1586,7 +1794,8 @@ def main(argv=None):
                              'ppo': ppo_out['launches']['fused_rollout'],
                              'dist': dist_out['launches'],
                              'evo': evo_out['launches'],
-                             'gym': gym_out['launches']},
+                             'gym': gym_out['launches'],
+                             'multihost': multihost_out['launches']},
         'lanes': times['lanes'],
         'bit_exact': True,
         'max_abs_err': max(parity_err, main_err),

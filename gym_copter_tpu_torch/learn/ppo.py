@@ -2,10 +2,11 @@
 
 The counterpart of `gym_copter_tpu/learn/ppo.py`: the same configuration,
 networks, rollout, GAE, clipped loss, `target_kl` guard, block shuffle,
-evaluation and training loop, and the same random draws (core/prng.py), so
-that one train step from the same state agrees with the JAX package's to
-rounding.  Layout is features-first throughout: obs (obs_dim, N), hidden
-(h, N), actions (A, N), the env batch on the last axis.
+evaluation and training loop, and the same random draws (core/prng.py),
+initial parameters included, so that a run from the same seed agrees with
+the JAX package's to rounding.  Layout is features-first throughout: obs
+(obs_dim, N), hidden (h, N), actions (A, N), the env batch on the last
+axis.
 
 Where the JAX package jits the whole train step into one XLA program, on the
 card this one captures its three fixed-shape phases as CUDA graphs (the
@@ -83,7 +84,8 @@ class PPOConfig(NamedTuple):
     # skip the first minibatch whose approx-KL exceeds this, and all after
     # it in the update; 0 disables
     target_kl: float = 0.0
-    # None = float32 dots; 'bfloat16' = bf16 operands (see mlp_apply)
+    # None = float32 dots; 'bfloat16' = bf16 operands, float32 products
+    # (see mlp_apply)
     matmul_dtype: Optional[str] = None
 
 
@@ -151,29 +153,6 @@ class ActorCritic(nn.Module):
         self.critic = nn.ModuleList([Dense(w, b) for w, b in critic])
         self.log_std = nn.Parameter(log_std, requires_grad=False)
 
-    @classmethod
-    def init(cls, obs_size: int, action_size: int, cfg: PPOConfig,
-             generator: torch.Generator, dtype=torch.float32, device=None):
-        """Orthogonal weights (gain sqrt 2) and zero biases drawn on the CPU
-        from `generator`, the actor's last layer scaled by 0.01, log_std at
-        cfg.init_log_std (JAX `init_params`; the draws are torch's, not
-        JAX's)."""
-        def mlp(sizes):
-            layers = []
-            for n_in, n_out in zip(sizes[:-1], sizes[1:]):
-                w = torch.empty((n_out, n_in), dtype=dtype)
-                nn.init.orthogonal_(w, gain=math.sqrt(2.0),
-                                    generator=generator)
-                layers.append((w, torch.zeros((n_out,), dtype=dtype)))
-            return layers
-
-        h = cfg.hidden
-        actor = mlp((obs_size, h, h, action_size))
-        actor[-1] = (actor[-1][0] * 0.01, actor[-1][1])
-        critic = mlp((obs_size, h, h, 1))
-        log_std = torch.full((action_size,), cfg.init_log_std, dtype=dtype)
-        return cls(actor, critic, log_std).to(resolve_device(device))
-
     def leaves(self) -> List[torch.Tensor]:
         ps = [p for layer in (*self.actor, *self.critic)
               for p in (layer.w, layer.b)] + [self.log_std]
@@ -200,18 +179,77 @@ def unflatten(leaves):
     return pairs(leaves[:n]), pairs(leaves[n:2 * n]), leaves[-1]
 
 
+def _orthogonal(key: torch.Tensor, n_out: int, n_in: int, scale: float,
+                dtype) -> torch.Tensor:
+    """`jax.nn.initializers.orthogonal(scale)(key, (n_out, n_in), dtype)`,
+    which is `jax.random.orthogonal`: a threefry normal of shape (max,
+    min) of the two sizes, its QR, Q's columns times the signs of R's
+    diagonal, transposed when n_out < n_in, then times the scale rounded
+    to `dtype`.  On the CPU; the QR is torch's LAPACK call, not XLA's, so
+    the result equals JAX's to rounding (tests/test_torch_init_bf16.py)."""
+    z = prng.normal(key.cpu(), (max(n_out, n_in), min(n_out, n_in)), dtype)
+    q, r = torch.linalg.qr(z)
+    q = q * torch.sign(torch.diagonal(r))[None, :]
+    if n_out < n_in:
+        q = q.mT
+    # LAPACK's Q is column-major; collectives need row-major tensors
+    return (torch.tensor(scale, dtype=dtype) * q).contiguous()
+
+
+def init_mlp_params(key: torch.Tensor, sizes, dtype=torch.float32):
+    """The JAX package's `init_mlp_params`: one key per layer from
+    split(key), orthogonal weights (out, in) at gain sqrt 2, zero biases.
+    Returns (w, b) pairs on the CPU."""
+    keys = prng.split(key.cpu(), len(sizes) - 1)
+    return [(_orthogonal(k, n_out, n_in, math.sqrt(2.0), dtype),
+             torch.zeros((n_out,), dtype=dtype))
+            for k, (n_in, n_out) in zip(keys, zip(sizes[:-1], sizes[1:]))]
+
+
+def init_params(key: torch.Tensor, obs_size: int, action_size: int,
+                cfg: PPOConfig, dtype=torch.float32) -> ActorCritic:
+    """The JAX package's `init_params` for the same key: the actor from
+    split(key)[0] with its last layer scaled by 0.01, the critic from
+    split(key)[1], log_std at cfg.init_log_std; on the key's device."""
+    k1, k2 = prng.split(key.cpu())
+    h = cfg.hidden
+    actor = init_mlp_params(k1, (obs_size, h, h, action_size), dtype)
+    actor[-1] = (actor[-1][0] * 0.01, actor[-1][1])
+    critic = init_mlp_params(k2, (obs_size, h, h, 1), dtype)
+    log_std = torch.full((action_size,), cfg.init_log_std, dtype=dtype)
+    return ActorCritic(actor, critic, log_std).to(key.device)
+
+
+def _check_exact_fp32_products():
+    """Raise where the card may compute float32 products in TF32, which
+    would round every operand to 10 bits instead of computing the products
+    asked for."""
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != 'highest' or \
+            getattr(torch.backends.cuda.matmul, 'fp32_precision',
+                    'none') not in ('none', 'ieee'):
+        raise RuntimeError(
+            'float32 matmuls on the card are set to drop to TF32 '
+            '(torch.backends.cuda.matmul.allow_tf32 or '
+            'torch.set_float32_matmul_precision); the PPO networks need '
+            'exact float32 products: restore the default "highest"')
+
+
 def mlp_apply(layers, x: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
     """x: (in, N) -> (out, N); tanh hidden activations.  layers: (w, b)
     pairs.
 
-    matmul_dtype='bfloat16' casts weights and activations to bf16 for the
-    products; biases and everything between the products stay float32.
-    `torch.matmul` on bf16 returns bf16, so the port rounds each product to
-    bf16 before widening it, where JAX keeps the float32 accumulator."""
+    matmul_dtype='bfloat16' rounds weights and activations to bf16 for the
+    products and multiplies them in float32: the product of two bf16
+    values is exact in float32, so this is JAX's bf16 `dot_general` with
+    `preferred_element_type=float32`, to float32 summation order.  Biases
+    and everything between the products stay float32."""
+    if x.is_cuda:
+        _check_exact_fp32_products()
     for i, (w, b) in enumerate(layers):
         if matmul_dtype is not None:
             dt = getattr(torch, matmul_dtype)
-            x = (w.to(dt) @ x.to(dt)).to(torch.float32) + b[:, None]
+            x = (w.to(dt).float() @ x.to(dt).float()) + b[:, None]
         else:
             dt = torch.promote_types(w.dtype, x.dtype)
             x = w.to(dt) @ x.to(dt) + b[:, None]
@@ -548,15 +586,12 @@ def init_train_state(key, env_params: EnvParams, spec: TaskSpec,
                      cfg: PPOConfig, num_envs: int, optimizer,
                      env_id_offset: int = 0,
                      dtype=torch.float32) -> TrainState:
-    """Params from split(key)[0] (the words seed a torch.Generator), the
-    envs reset under `key` at episode 0, and split(key)[1] as the step
-    key, on key's device."""
+    """The JAX package's `init_train_state`: params from split(key)[0]
+    (`init_params`), the envs reset under `key` at episode 0, and
+    split(key)[1] as the step key, on key's device."""
     kp, kr = prng.split(key)
     device = key.device
-    seed = (int(kp[0]) << 32) | int(kp[1])
-    params = ActorCritic.init(spec.obs_size, spec.action_size, cfg,
-                              torch.Generator().manual_seed(seed), dtype,
-                              device)
+    params = init_params(kp, spec.obs_size, spec.action_size, cfg, dtype)
     env_ids = env_id_offset + torch.arange(num_envs, dtype=torch.int32,
                                            device=device)
     env_state, obs = base.reset(

@@ -21,6 +21,7 @@ NCCL carries the collectives on the card, gloo on the CPU.
 from __future__ import annotations
 
 import datetime
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -31,14 +32,23 @@ from gym_copter_tpu_torch.ops.fused_rollout import fused_rollout
 
 
 def init_world(backend: str, rank: int, world_size: int, init_method: str,
-               device=None, timeout_s: float = 300.0):
+               device=None, timeout_s: float = 300.0,
+               local_rank: Optional[int] = None):
     """Join the process group and return (group, device).  The device is
-    `cuda:<local rank>` (this host's card rank % cards), made current, unless
-    the caller names one ('cpu' for the CPU tests).  `timeout_s` bounds
-    every collective."""
+    the one the caller names ('cpu' for the CPU tests), else the card of
+    the rank's `local_rank` on its own host, `cuda:<local_rank % this
+    host's cards>` (a global rank says nothing of the host it runs on;
+    ranks beyond the host's cards share them, as gloo ranks may, while
+    NCCL needs a card per rank); it is made current.  `timeout_s` bounds
+    the rendezvous and every collective."""
     if device is None:
+        if local_rank is None:
+            raise ValueError('name the device or the local rank: the '
+                             'global rank does not say which card of its '
+                             'host a rank owns')
         resolve_device(None)  # raises without a card
-        device = torch.device('cuda', rank % torch.cuda.device_count())
+        device = torch.device('cuda',
+                              local_rank % torch.cuda.device_count())
     device = torch.device(device)
     if device.type == 'cuda':
         torch.cuda.set_device(device)

@@ -191,7 +191,8 @@ def test_sharded_graphed_step_equals_unsharded_nccl(tmp_path):
 
     device = _card()
     group, dev = sharding.init_world('nccl', 0, 1,
-                                     f'file://{tmp_path}/store')
+                                     f'file://{tmp_path}/store',
+                                     local_rank=0)
     try:
         env, plain, ts = _small_step(dev)
         sharded, _ = ppo.make_train_step(env.params, env.spec, plain.cfg,

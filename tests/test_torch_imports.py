@@ -29,6 +29,8 @@ MODULES = [
     'gym_copter_tpu_torch.examples.vsa_hover1d',
     'gym_copter_tpu_torch.learn.td3',
     'gym_copter_tpu_torch.learn.train_hover3d',
+    'gym_copter_tpu_torch.learn.ppo',
+    'gym_copter_tpu_torch.parallel.launch',
 ]
 
 

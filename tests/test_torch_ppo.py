@@ -97,8 +97,8 @@ def test_gae_matches_reference_recursion():
     np.testing.assert_allclose(jadv, expected, rtol=1e-6)
 
     obs_size = tasks.HOVER_3D.obs_size
-    net = ppo.ActorCritic.init(obs_size, 4, cfg, torch.Generator(),
-                               torch.float64, CPU)
+    net = ppo.init_params(prng.PRNGKey(0, CPU), obs_size, 4, cfg,
+                          torch.float64)
     for env in range(b):
         leaves = [torch.zeros_like(p) for p in net.leaves()]
         leaves[11] = torch.tensor([last_value[env]], dtype=torch.float64)
@@ -367,22 +367,38 @@ def test_eval_matches_jax():
     np.testing.assert_allclose(float(got_mean), float(want_mean), rtol=1e-5)
 
 
-def test_bf16_matmul_close_to_f32():
-    """matmul_dtype='bfloat16': bf16 operands, float32 out (each product
-    rounded to bf16, where JAX keeps the f32 accumulator); within bf16's
-    ~3 digits of the f32 path, rtol/atol 0.05, and a train step stays
-    finite."""
-    cfg = ppo.PPOConfig(hidden=32)
-    net = ppo.ActorCritic.init(10, 4, cfg, torch.Generator().manual_seed(0),
-                               device=CPU)
-    actor = ppo.unflatten(net.leaves())[0]
-    x = torch.from_numpy(np.random.default_rng(1).normal(
-        size=(10, 64)).astype(np.float32))
-    f32 = ppo.mlp_apply(actor, x)
-    bf16 = ppo.mlp_apply(actor, x, 'bfloat16')
-    assert bf16.dtype == torch.float32
-    np.testing.assert_allclose(f32.numpy(), bf16.numpy(), rtol=0.05,
-                               atol=0.05)
+@pytest.mark.parametrize('hidden', [32, 128])
+def test_bf16_matmul_close_to_f32(hidden):
+    """matmul_dtype='bfloat16': bf16 operands, float32 products and sums,
+    as JAX's dot_general with preferred_element_type=float32.  On JAX's
+    float32 initial parameters of seed 0 and 4096 columns: each layer,
+    given the same input, within 1e-6 of JAX's (measured 7.2e-7; the
+    sums' order differs); the whole actor and critic within 2e-3
+    (measured 1.2e-5 on the actor's outputs of ~0.03 and 9.7e-4 on the
+    critic's of ~1.8: a last-bit difference in a float32 tanh flips a bf16
+    rounding of the next layer's input); within bf16's ~3 digits of the
+    float32 path, rtol/atol 0.05; and a train step stays finite."""
+    jp = jppo.init_params(jax.random.PRNGKey(0), 10, 4,
+                          jppo.PPOConfig(hidden=hidden), jnp.float32)
+    actor, critic, _ = ppo.unflatten(
+        convert.ppo_params_from_numpy(jp, CPU).leaves())
+    x = np.random.default_rng(1).normal(size=(10, 4096)).astype(np.float32)
+    for jlayers, layers in ((jp['actor'], actor), (jp['critic'], critic)):
+        xs = x
+        for jlayer, layer in zip(jlayers, layers):
+            want = np.asarray(jppo.mlp_apply([jlayer], jnp.asarray(xs),
+                                             'bfloat16'))
+            got = ppo.mlp_apply([layer], torch.from_numpy(xs), 'bfloat16')
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+            xs = np.tanh(want)
+        want = np.asarray(jppo.mlp_apply(jlayers, jnp.asarray(x),
+                                         'bfloat16'))
+        got = ppo.mlp_apply(layers, torch.from_numpy(x), 'bfloat16')
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-3)
+        f32 = ppo.mlp_apply(layers, torch.from_numpy(x))
+        np.testing.assert_allclose(f32.numpy(), got.numpy(), rtol=0.05,
+                                   atol=0.05)
 
     cfg_t = ppo.PPOConfig(rollout_steps=4, hidden=8, minibatches=2,
                           epochs=2, matmul_dtype='bfloat16')

@@ -21,9 +21,9 @@ def test_lander1d_actually_learns():
     """On the densely shaped 1-D lander a short deterministic CPU run must
     raise the deterministic-eval return from the free-fall baseline (~ -200)
     past +100: the proof that the port's gradient path improves the policy.
-    The JAX test's recipe (256 envs x 64 steps x 80 updates, seed 3),
-    evaluated at updates 0, 40 and 79 (the JAX test: every 20th); measured
-    -202.8, 115.0, 164.8 here."""
+    The JAX test's recipe (256 envs x 64 steps x 80 updates, seed 3, so
+    the JAX test's own initial parameters), evaluated at updates 0, 40 and
+    79 (the JAX test: every 20th); measured -202.8, 84.8, 157.1 here."""
     cfg = ppo.PPOConfig(rollout_steps=64, hidden=32, gamma=0.995)
     vals = []
     ppo.train('Lander1D-v0', num_envs=256, num_updates=80, seed=3, cfg=cfg,
