@@ -30,9 +30,12 @@ Phases, each printed before the last line:
      updates at the recorded recipe; 3 graphed train steps held bit for bit
      against the eager steps from the same state; one small float32 step on
      the card against the CPU; device ms per phase (rollout, GAE, update),
-     eager and graphed, and env-steps/s of training; operations and CUDA
-     graph nodes per env step; the graphed evaluation's time, and a short
-     one against its eager loop; one {"ppo": ...} JSON line;
+     eager and graphed, and env-steps/s of training, with the card's SM
+     clock, power draw, temperature and throttle reasons and its us per
+     graph node (utils/profiling.NodeLatency) sampled beside each rep;
+     operations and CUDA graph nodes per env step; the graphed
+     evaluation's time, and a short one against its eager loop; one
+     {"ppo": ...} JSON line;
   5c. the sharded path ([dist], parallel/): a one-rank NCCL world in this
      process, whose sharded graphed train step at the recipe is held bit for
      bit against the unsharded graphed step and timed beside it, and whose
@@ -88,6 +91,11 @@ Phases, each printed before the last line:
      1024, 4096, 8192, 12,288, 16,384 and 65,536 envs at every lanes-per-env
      choice (differential, 10k vs 110k steps); the SM clock under load; the
      plain eager step; the kernel's bound and its issue-limited time;
+  6b. [bench]: the headline entry point (python -m gym_copter_tpu_torch.
+     bench) at 4096 envs, its history in a temporary directory: its JSON
+     line parsed, its sanity check passed, its value held against phase
+     6's differential figure at 4096 envs within the two spreads plus 1 %,
+     the fused kernel's launches counted from 0; one {"bench": ...} line;
   7. one JSON line {"kernels": [...]}.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
@@ -518,6 +526,66 @@ def timing_phase(main, straight, max_mhz):
     return out
 
 
+# [bench]: the headline's value agrees with phase 6's differential figure
+# at the main batch within the sum of their spreads plus this floor, in
+# percent: the two time other windows (1M against 100k steps) by other
+# clocks (the host's against CUDA events)
+BENCH_AGREE_FLOOR_PCT = 1.0
+BENCH_KEYS = ('metric', 'value', 'unit', 'vs_baseline', 'spread_pct',
+              'rejected_samples', 'card')
+
+
+def bench_phase(times):
+    """[bench]: the headline entry point (`python -m gym_copter_tpu_torch.
+    bench`, bench/headline.py) at full size with its history in a temporary
+    directory; its line parsed and its value held against phase 6's
+    differential figure at MAIN_B; the kernel's launches counted from 0."""
+    import statistics
+    import tempfile
+
+    from gym_copter_tpu_torch.bench import headline
+    from gym_copter_tpu_torch.ops import fused_rollout as fr
+    from gym_copter_tpu_torch.utils import profiling
+
+    fr.fused_rollout.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        line = json.loads(json.dumps(headline.run(
+            history=f'{tmp}/history.json')))
+        runs = json.loads(Path(f'{tmp}/history.json').read_text())['runs']
+    out = {'seconds': time.perf_counter() - t0,
+           'launches': fr.fused_rollout.launches, 'line': line}
+    missing = [k for k in BENCH_KEYS if k not in line]
+    if missing or len(runs) != 1 or out['launches'] < 1:
+        raise AssertionError(f'headline: keys missing {missing}, '
+                             f'{len(runs)} history entries, '
+                             f'{out["launches"]} launches')
+    sweep = times[f'B{MAIN_B}_L{times["lanes"]}']
+    lo = statistics.median(sweep['ms_10k_samples'])
+    rates = [MAIN_B * 100_000 / ((hi - lo) * 1e-3)
+             for hi in sweep['ms_110k_samples']]
+    sweep_spread = profiling.robust_stats(rates)['spread_pct']
+    gap = abs(line['value'] / sweep['env_steps_per_s'] - 1) * 100
+    tol = line['spread_pct'] + sweep_spread + BENCH_AGREE_FLOOR_PCT
+    out.update({'phase6_env_steps_per_s': sweep['env_steps_per_s'],
+                'phase6_spread_pct': sweep_spread, 'gap_pct': gap,
+                'tolerance_pct': tol})
+    log(f'[bench] python -m gym_copter_tpu_torch.bench at B={MAIN_B}: '
+        f'{line["value"]:.6g} env-steps/s (spread {line["spread_pct"]}%, '
+        f'{line["rejected_samples"]} rejected; sanity '
+        f'{runs[0]["sanity"]["fused_episodes"]:.3f} fused / '
+        f'{runs[0]["sanity"]["scan_episodes"]:.3f} step-by-step episodes '
+        f'per env); phase 6: {sweep["env_steps_per_s"]:.6g} (spread '
+        f'{sweep_spread:.2f}%); gap {gap:.3f}% (limit {tol:.3f}%); '
+        f'{out["launches"]} fused launches counted from 0; '
+        f'{out["seconds"]:.1f} s')
+    if gap > tol:
+        raise AssertionError(f'the headline ({line["value"]}) and phase 6 '
+                             f'({sweep["env_steps_per_s"]}) disagree by '
+                             f'{gap:.3f}% > {tol:.3f}%')
+    return out
+
+
 # the recipe of the recorded 4096-env curves (scripts/train_curve.py's
 # defaults); minibatches and shuffle_block resolve to 16 and 128
 PPO_CFG = dict(rollout_steps=128, hidden=128, epochs=4, learning_rate=3e-4,
@@ -593,20 +661,47 @@ def _graph_nodes(fn, inputs, warmup):
 def _ppo_times(step, ts, graphed, reps):
     """Median device ms of each phase (rollout, GAE, update) by CUDA events,
     median wall seconds of the whole step (host clock, synchronized), and
-    the samples."""
-    phases, walls = [], []
+    the samples; beside each rep the card's SM clock, power draw,
+    temperature and throttle reasons (nvidia-smi, started before the rep
+    and read after it) and its µs per graph node read right after it."""
+    from gym_copter_tpu_torch.utils import profiling
+
+    node = profiling.NodeLatency()
+    phases, walls, cards = [], [], []
     for _ in range(reps):
         marks = []
+        read = profiling.card_probe()
         t0 = time.perf_counter()
         step.run(ts, graphed, marks)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        cards.append(dict(_card_sample(read()), node_us=node()))
         phases.append([marks[i].elapsed_time(marks[i + 1])
                        for i in range(3)])
     med = [sorted(p[i] for p in phases)[reps // 2] for i in range(3)]
     return {'rollout_ms': med[0], 'gae_ms': med[1], 'update_ms': med[2],
             'step_s': sorted(walls)[reps // 2], 'samples_ms': phases,
-            'step_s_samples': walls}
+            'step_s_samples': walls, 'card_samples': cards}
+
+
+def _card_sample(card):
+    """The fields of a `profiling.card` reading that change under load."""
+    return {k: card[k] for k in ('sm_mhz', 'power_draw_w', 'temperature_c',
+                                 'throttle_reasons')}
+
+
+def _clocks(times):
+    """The ranges of the card samples of a _ppo_times record."""
+    cards = times['card_samples']
+
+    def span(k, fmt):
+        vals = [c[k] for c in cards if c[k] is not None]
+        return (f'{min(vals):{fmt}}-{max(vals):{fmt}}' if vals else 'n/a')
+
+    return (f'SM {span("sm_mhz", ".0f")} MHz, {span("power_draw_w", ".1f")} '
+            f'W, {span("temperature_c", ".0f")} C, throttle '
+            f'{sorted({c["throttle_reasons"] for c in cards})}, '
+            f'{span("node_us", ".4f")} us per graph node')
 
 
 def ppo_phase():
@@ -727,7 +822,8 @@ def ppo_phase():
             f'{t["gae_ms"]:.2f} ms, update {t["update_ms"]:.2f} ms of '
             f'device time (CUDA events, median); {t["step_s"] * 1e3:.2f} ms '
             f'per train step on the host clock = '
-            f'{per_step / t["step_s"]:.4g} env-steps/s of training')
+            f'{per_step / t["step_s"]:.4g} env-steps/s of training; card '
+            f'beside the reps: {_clocks(t)}')
 
     # 5. launches and graph nodes per env step
     leaves = g.params.leaves()
@@ -834,7 +930,8 @@ def dist_phase(plain):
                 f'bit (max abs {errs}); step on the host clock '
                 + ', '.join(f'{n} {t["step_s"] * 1e3:.2f} ms (rollout '
                             f'{t["rollout_ms"]:.2f}, GAE {t["gae_ms"]:.2f}, '
-                            f'update {t["update_ms"]:.2f})' for n, t in runs))
+                            f'update {t["update_ms"]:.2f}; {_clocks(t)})'
+                            for n, t in runs))
 
             state, _ = env.reset()
             action = torch.full((4, MAIN_B), MOTORVAL, device=device)
@@ -1784,6 +1881,8 @@ def main(argv=None):
     times = timing_phase(main, straight, max_mhz)
     log(f'[time] card: {smi}')
     log(json.dumps({'timings': times, 'card': smi}))
+    bench_out = bench_phase(times)
+    log(json.dumps({'bench': bench_out}))
     kernels = [{
         'name': 'fused_rollout',
         'route': 'cuda',
@@ -1795,7 +1894,8 @@ def main(argv=None):
                              'dist': dist_out['launches'],
                              'evo': evo_out['launches'],
                              'gym': gym_out['launches'],
-                             'multihost': multihost_out['launches']},
+                             'multihost': multihost_out['launches'],
+                             'bench': bench_out['launches']},
         'lanes': times['lanes'],
         'bit_exact': True,
         'max_abs_err': max(parity_err, main_err),

@@ -35,6 +35,8 @@ from gym_copter_tpu_torch.core import constants as C
 from gym_copter_tpu_torch.core import dynamics
 from gym_copter_tpu_torch.core.device import div
 from gym_copter_tpu_torch.core.dynamics import DynamicsState
+from gym_copter_tpu_torch.core.graph import Graph
+from gym_copter_tpu_torch.core.tree import tree_map
 from gym_copter_tpu_torch.core.types import EnvParams
 from gym_copter_tpu_torch.envs import base
 from gym_copter_tpu_torch.envs.base import EnvState, TaskSpec
@@ -549,13 +551,25 @@ def fused_rollout_reference(state: EnvState, action, num_steps: int,
 
 
 def scan_rollout(state: EnvState, action, base_key, env_ids, num_steps: int,
-                 params: EnvParams, spec: TaskSpec):
-    """The step-by-step path: `num_steps` calls of `envs/base.step`.  Works
-    for every task and batch size; it is the fused rollout's fallback."""
-    acc = torch.zeros_like(state.prev_shaping)
-    eps = torch.zeros_like(state.steps)
-    for _ in range(num_steps):
+                 params: EnvParams, spec: TaskSpec, *, graphed: bool = False):
+    """The step-by-step reference path: `num_steps` calls of
+    `envs/base.step`, with the env's threefry reset draws.  Works for every
+    task and batch size; the CPU takes it for a batch the plain fused
+    version does not cover, and the card never falls back to it.  With
+    `graphed` (state on the card) one step is a CUDA graph replayed
+    `num_steps` times (core/graph.py), the same operations without the
+    host's launches."""
+    def one(state, acc, eps):
         state, ts = base.step(state, action, base_key, env_ids, params, spec)
-        acc = acc + ts.reward
-        eps = eps + ts.done.to(torch.int32)
+        return state, acc + ts.reward, eps + ts.done.to(torch.int32)
+
+    step = Graph(one, warmup=1) if graphed else one
+    carry = (state, torch.zeros_like(state.prev_shaping),
+             torch.zeros_like(state.steps))
+    for _ in range(num_steps):
+        carry = step(*carry)
+    state, acc, eps = carry
+    if graphed:
+        # the graph's static outputs are overwritten by its next replay
+        state, acc, eps = tree_map(torch.clone, (state, acc, eps))
     return state, {'reward_sum': acc, 'episodes': eps}

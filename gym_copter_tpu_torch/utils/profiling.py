@@ -7,6 +7,16 @@
   inside the time.  Samples whose marginal time is not positive are
   rejected and drawn again, never clamped; when every attempt is rejected
   it raises.
+* `timeit` is the JAX scripts' per-call differential timing
+  (`scripts/bench_train.py`, `scripts/profile_ppo.py`): seconds per call
+  of an op that `fn(n)` runs n times, from the difference between n_hi
+  and n_lo calls.
+* `card` reads the card's name, power limit, SM clock now and at most,
+  power draw, temperature and clock throttle reasons from `nvidia-smi`;
+  `card_probe` starts that query and reads it later, so that a sample can
+  be taken while timed work runs.
+* `NodeLatency` reads the card's device time per node of a CUDA graph of
+  tiny kernels, a state of the card that nvidia-smi does not show.
 * `trace` wraps `torch.profiler` (CPU and, where there is a card, CUDA
   activity) and writes a Chrome trace; `device_busy` reads one: the
   device's busy share of the traced window and its kernels by device time.
@@ -21,6 +31,7 @@ import contextlib
 import json
 import os
 import statistics
+import subprocess
 import time
 from typing import Callable
 
@@ -114,6 +125,152 @@ def differential_steps_per_sec(run: Callable[[int], object], t_lo: int,
         'rejected': res['rejected'],
         'n_samples': len(samples),
     }
+
+
+def timeit(fn: Callable[[int], object], reps: int = 8, n_lo: int = 3,
+           n_hi: int = 13, *, probe: Callable[[], Callable[[], dict]] = None,
+           clock: Callable[[], float] = time.perf_counter) -> dict:
+    """Differential seconds per call of the op that `fn(n)` runs n times:
+    one warm call fn(2), then `reps` times (t(fn(n_hi)) - t(fn(n_lo))) /
+    (n_hi - n_lo), each run synchronized.  With `probe` (`card_probe`), a
+    query is started before each rep and read after it.  Returns
+    {'seconds' (the median), 'samples', 'spread_pct', 'beside' (one probe
+    result per rep, or None)}."""
+    def timed(n):
+        t0 = clock()
+        fn(n)
+        synchronize()
+        return clock() - t0
+
+    fn(2)
+    synchronize()
+    samples, beside = [], []
+    for _ in range(reps):
+        read = probe() if probe is not None else None
+        lo = timed(n_lo)
+        samples.append((timed(n_hi) - lo) / (n_hi - n_lo))
+        beside.append(read() if read is not None else None)
+    stats = robust_stats(samples)
+    return {'seconds': stats['median'], 'samples': samples,
+            'spread_pct': stats['spread_pct'],
+            'beside': beside if probe is not None else None}
+
+
+class NodeLatency:
+    """Device µs per node of a CUDA graph of `nodes` dependent tiny kernels
+    (an in-place add on `size` floats), by CUDA events around one replay:
+    the launch-latency floor per graph node that sets the port's graphed
+    times (PERF.md), read beside a measurement as the SM clock is.  On the
+    card only; capturing it allocates `size` floats."""
+
+    def __init__(self, device='cuda', nodes: int = 1000, size: int = 4096):
+        import torch
+
+        self.nodes = nodes
+        self.x = torch.zeros(size, device=device)
+        side = torch.cuda.Stream(self.x.device)
+        side.wait_stream(torch.cuda.current_stream(self.x.device))
+        with torch.cuda.stream(side):
+            self.x.add_(1.0)
+        torch.cuda.current_stream(self.x.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            for _ in range(nodes):
+                self.x.add_(1.0)
+
+    def __call__(self) -> float:
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e3 / self.nodes
+
+
+# nvidia-smi's fields read by `card`; the throttle reasons field took a new
+# name in later drivers, which keep the old one as an alias
+CARD_FIELDS = ('name', 'power.limit', 'clocks.sm', 'clocks.max.sm',
+               'power.draw', 'temperature.gpu')
+THROTTLE_FIELDS = ('clocks_throttle_reasons.active',
+                   'clocks_event_reasons.active')
+# the bits of the throttle reasons mask (NVML's nvmlClocksThrottleReason*)
+THROTTLE_BITS = ((0x1, 'gpu_idle'), (0x2, 'applications_clocks_setting'),
+                 (0x4, 'sw_power_cap'), (0x8, 'hw_slowdown'),
+                 (0x10, 'sync_boost'), (0x20, 'sw_thermal_slowdown'),
+                 (0x40, 'hw_thermal_slowdown'),
+                 (0x80, 'hw_power_brake_slowdown'),
+                 (0x100, 'display_clock_setting'))
+
+
+def _number(field: str):
+    """'700.00 W' -> 700.0, '1980 MHz' -> 1980.0; None where nvidia-smi
+    has no value ('[N/A]', '[Not Supported]')."""
+    try:
+        return float(field.split()[0])
+    except (ValueError, IndexError):
+        return None
+
+
+def parse_card(line: str) -> dict:
+    """One line of `nvidia-smi --query-gpu=<CARD_FIELDS>,<throttle field>
+    --format=csv,noheader` as a dict.  'smi' is the card's name and power
+    limit exactly as `--query-gpu=name,power.limit` prints them."""
+    fields = [f.strip() for f in line.split(', ')]
+    if len(fields) != len(CARD_FIELDS) + 1:
+        raise ValueError(f'nvidia-smi printed {line!r}')
+    name, limit, sm, max_sm, draw, temp, reasons = fields
+    try:
+        mask = int(reasons, 16)
+    except ValueError:
+        mask = None
+    return {'smi': f'{name}, {limit}', 'name': name,
+            'power_limit_w': _number(limit), 'sm_mhz': _number(sm),
+            'max_sm_mhz': _number(max_sm), 'power_draw_w': _number(draw),
+            'temperature_c': _number(temp), 'throttle_reasons': reasons,
+            'throttle': ([n for bit, n in THROTTLE_BITS if mask & bit]
+                         if mask is not None else None)}
+
+
+def _card_query(index: int, throttle_field: str) -> list:
+    return ['nvidia-smi', f'--id={index}',
+            '--query-gpu=' + ','.join(CARD_FIELDS + (throttle_field,)),
+            '--format=csv,noheader']
+
+
+def card_probe(index: int = 0,
+               timeout_s: float = 60.0) -> Callable[[], dict]:
+    """Start the `card` query of card `index` in the background; returns a
+    function that waits for it and returns `card`'s dict.  Raises where
+    nvidia-smi is missing or fails."""
+    proc = subprocess.Popen(_card_query(index, THROTTLE_FIELDS[0]),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+    def read() -> dict:
+        out, _ = proc.communicate(timeout=timeout_s)
+        if proc.returncode != 0:
+            # an older name refused: ask once with the newer one
+            alt = subprocess.run(_card_query(index, THROTTLE_FIELDS[1]),
+                                 capture_output=True, text=True,
+                                 timeout=timeout_s)
+            if alt.returncode != 0:
+                raise RuntimeError(f'nvidia-smi failed: {out.strip()} / '
+                                   f'{alt.stdout.strip()}')
+            out = alt.stdout
+        return parse_card(out.strip().splitlines()[0])
+
+    return read
+
+
+def card(index: int = 0) -> dict:
+    """The card's name and power limit ('smi', as `nvidia-smi
+    --query-gpu=name,power.limit` prints them), its SM clock now and at
+    most in MHz, power draw in W, temperature in C and the active clock
+    throttle reasons (the hex mask and their names), from nvidia-smi."""
+    return card_probe(index)()
 
 
 TRACE_FILE = 'trace.json'

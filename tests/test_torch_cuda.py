@@ -434,3 +434,49 @@ def test_capture_failure_raises():
     step.advantages = syncing
     with pytest.raises(RuntimeError):
         step(ts)
+
+
+@pytest.mark.cuda
+def test_graphed_scan_rollout_equals_eager():
+    """The step-by-step reference path as a one-step graph replayed (the
+    headline bench's sanity path) against its eager loop: bit-equal, with
+    the env's threefry resets."""
+    device = _card()
+    env = gt.make('Lander3D-v0', num_envs=1000, device=device)
+    state, _ = env.reset()
+    action = torch.full((4, 1000), 1.625e-2, device=device)
+    out = [fr.scan_rollout(state, action, env.base_key, env.env_ids, 1200,
+                           env.params, env.spec, graphed=g)
+           for g in (True, False)]
+    assert state_diff(out[0][0], out[1][0], 'graphed scan') == 0
+    for k in ('reward_sum', 'episodes'):
+        assert torch.equal(out[0][1][k], out[1][1][k]), k
+    assert int(out[0][1]['episodes'].min()) >= 1
+
+
+@pytest.mark.cuda
+def test_headline_bench_on_the_card(tmp_path):
+    """The headline entry point at a small size on the card: its line, its
+    sanity check and one history entry naming the card."""
+    from gym_copter_tpu_torch.bench import headline
+
+    _card()
+    launches = fr.fused_rollout.launches
+    out = headline.run(1024, 1000, 21_000, 3, history=tmp_path / 'h.json',
+                       sanity_steps=1200, warmup_s=0.2, min_marginal_s=0.0)
+    assert out['value'] > 0 and out['card']['before']['smi'].startswith(
+        torch.cuda.get_device_name(0))
+    assert fr.fused_rollout.launches > launches
+
+
+@pytest.mark.cuda
+def test_node_latency_replays_its_graph():
+    """The card's µs per graph node: positive, and its graph adds once per
+    node per replay."""
+    from gym_copter_tpu_torch.utils.profiling import NodeLatency
+
+    _card()
+    node = NodeLatency(nodes=100, size=16)
+    readings = [node() for _ in range(3)]
+    assert all(0 < r < 1000 for r in readings)
+    assert torch.equal(node.x, torch.full((16,), 301.0, device='cuda'))

@@ -31,6 +31,15 @@ MODULES = [
     'gym_copter_tpu_torch.learn.train_hover3d',
     'gym_copter_tpu_torch.learn.ppo',
     'gym_copter_tpu_torch.parallel.launch',
+    'gym_copter_tpu_torch.bench',
+    'gym_copter_tpu_torch.bench.__main__',
+    'gym_copter_tpu_torch.bench.common',
+    'gym_copter_tpu_torch.bench.headline',
+    'gym_copter_tpu_torch.bench.batch_sweep',
+    'gym_copter_tpu_torch.bench.train',
+    'gym_copter_tpu_torch.bench.profile_ppo',
+    'gym_copter_tpu_torch.bench.vision',
+    'gym_copter_tpu_torch.bench.scaling',
 ]
 
 

@@ -4,6 +4,7 @@ advances the clock by what it would take, so no test sleeps or depends on
 the machine's load."""
 
 import json
+import os
 
 import pytest
 import torch
@@ -120,3 +121,86 @@ def test_cpu_trace_has_no_device_kernel(tmp_path):
     assert any('add' in e.get('name', '') for e in data['traceEvents'])
     with pytest.raises(ValueError, match='no device kernel'):
         profiling.device_busy(str(tmp_path / profiling.TRACE_FILE))
+
+
+def test_timeit_is_the_jax_scripts_differential():
+    """One warm call of 2, then per rep n_lo and n_hi calls: the fixed cost
+    of a call cancels; a probe is started before each rep and read after
+    it."""
+    clock = FakeClock()
+    calls, probes = [], []
+
+    def fn(n):
+        calls.append(n)
+        clock.now += 0.05 + 0.01 * n
+
+    def probe():
+        probes.append(('start', len(calls)))
+        return lambda: {'rep': len(probes), 'calls': len(calls)}
+
+    res = profiling.timeit(fn, reps=3, probe=probe, clock=clock)
+    assert calls == [2] + [3, 13] * 3
+    assert res['seconds'] == pytest.approx(0.01, rel=1e-9)
+    assert res['samples'] == pytest.approx([0.01] * 3, rel=1e-9)
+    assert res['spread_pct'] == pytest.approx(0.0, abs=1e-6)
+    assert probes == [('start', 1), ('start', 3), ('start', 5)]
+    assert res['beside'] == [{'rep': 1, 'calls': 3}, {'rep': 2, 'calls': 5},
+                             {'rep': 3, 'calls': 7}]
+    assert profiling.timeit(fn, reps=2, n_lo=1, n_hi=2,
+                            clock=clock)['beside'] is None
+
+
+H100_LINE = ('NVIDIA H100 80GB HBM3, 700.00 W, 1980 MHz, 1980 MHz, 312.45 W, '
+             '41, 0x0000000000000000')
+
+
+@pytest.mark.parametrize('reasons,names', [
+    ('0x0000000000000000', []),
+    ('0x0000000000000001', ['gpu_idle']),
+    ('0x0000000000000024', ['sw_power_cap', 'sw_thermal_slowdown']),
+    ('[N/A]', None)])
+def test_parse_card(reasons, names):
+    line = H100_LINE.replace('0x0000000000000000', reasons)
+    card = profiling.parse_card(line)
+    assert card['smi'] == 'NVIDIA H100 80GB HBM3, 700.00 W'
+    assert card['name'] == 'NVIDIA H100 80GB HBM3'
+    assert (card['power_limit_w'], card['sm_mhz'], card['max_sm_mhz'],
+            card['power_draw_w'], card['temperature_c']) == (
+        700.0, 1980.0, 1980.0, 312.45, 41.0)
+    assert card['throttle_reasons'] == reasons and card['throttle'] == names
+
+
+def test_parse_card_refuses_other_lines():
+    with pytest.raises(ValueError, match='nvidia-smi printed'):
+        profiling.parse_card('NVIDIA H100 80GB HBM3, 700.00 W')
+    assert profiling.parse_card(H100_LINE.replace(
+        '312.45 W', '[N/A]'))['power_draw_w'] is None
+
+
+@pytest.mark.parametrize('old_name_refused', [False, True])
+def test_card_asks_nvidia_smi(tmp_path, monkeypatch, old_name_refused):
+    """`card` runs nvidia-smi with the card's index and the fields of
+    parse_card; a driver that refuses the throttle field's older name is
+    asked again with the newer one."""
+    log = tmp_path / 'args.txt'
+    fake = tmp_path / 'nvidia-smi'
+    refuse = ('if echo "$@" | grep -q clocks_throttle_reasons; then '
+              'echo \'Field "clocks_throttle_reasons.active" is not a valid '
+              'field to query.\'; exit 2; fi\n' if old_name_refused else '')
+    fake.write_text(f'#!/bin/sh\necho "$@" >> {log}\n{refuse}'
+                    f'echo "{H100_LINE}"\n')
+    fake.chmod(0o755)
+    monkeypatch.setenv('PATH', f'{tmp_path}{os.pathsep}'
+                       + os.environ.get('PATH', ''))
+    card = profiling.card(3)
+    assert card['smi'] == 'NVIDIA H100 80GB HBM3, 700.00 W'
+    args = log.read_text().splitlines()
+    assert all('--id=3' in a and '--format=csv,noheader' in a for a in args)
+    assert len(args) == (2 if old_name_refused else 1)
+    assert ('clocks_event_reasons.active' in args[-1]) == old_name_refused
+
+
+def test_card_without_nvidia_smi_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv('PATH', str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        profiling.card()
