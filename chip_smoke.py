@@ -45,8 +45,13 @@ Phases, each printed before the last line:
      parameters equal across ranks after one eager step, the gloo
      all-reduce's time;
   5d. [ckpt]: the recipe's TrainState saved and restored (utils/
-     checkpoint.py), ms and bytes, and two graphed steps after the restore
-     held bit for bit against uninterrupted ones;
+     checkpoint.py) as a .npz file and as an orbax directory, ms and bytes
+     of each, and two graphed steps after each restore held bit for bit
+     against uninterrupted ones; then the JAX package's orbax checkpoint
+     of the recipe after one update (tests/data/jax_orbax_lander3d/,
+     OCDBT) decoded and restored onto the card, every leaf held to its
+     recorded SHA-256, and one graphed update from it held to JAX's
+     recorded metrics (FIXTURE_METRIC_RTOL, FIXTURE_METRIC_ATOL);
   5e. [trace]: a torch.profiler trace of two graphed train steps: the
      device's busy and idle shares and its top kernels (utils/
      profiling.py); one {"dist": ..., "ckpt": ..., "trace": ...} line;
@@ -972,40 +977,109 @@ def dist_phase(plain):
     return out
 
 
-def ckpt_phase(step, ts):
-    """[ckpt]: save and restore of the recipe's TrainState (utils/
-    checkpoint.py), with ms and bytes; graphed steps after the restore
-    held bit for bit against uninterrupted ones."""
+# the gap allowed between each metric of the port's first update on the
+# card from the committed JAX checkpoint and JAX's recorded one (CPU,
+# float32): |port - jax| <= rtol * |jax| + atol.  Measured on an H100:
+# approx_kl 1.30e-5 relative, the others at most 3.95e-6, done_rate
+# exact; rtol 1e-4 is also what [ppo] holds a card step to the CPU's
+FIXTURE_METRIC_RTOL, FIXTURE_METRIC_ATOL = 1e-4, 1e-8
+
+
+def _dir_bytes(path):
+    return (path.stat().st_size if path.is_file() else
+            sum(f.stat().st_size for f in path.rglob('*') if f.is_file()))
+
+
+def ckpt_phase(step, ts, smi):
+    """[ckpt]: the recipe's TrainState saved and restored in both formats
+    (utils/checkpoint.py: a .npz file and an orbax directory), with bytes
+    and ms, graphed steps after each restore held bit for bit against
+    uninterrupted ones; then the committed JAX-written orbax checkpoint
+    (tests/data/jax_orbax_lander3d/) restored, every leaf held to its
+    recorded SHA-256, and one graphed update from it held to JAX's
+    recorded metrics."""
     import tempfile
 
-    from gym_copter_tpu_torch.utils import checkpoint
+    from gym_copter_tpu_torch.utils import checkpoint, orbax_format
 
     cases = _cases()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        path = f'{tmp}/train_state.npz'
-        t0 = time.perf_counter()
-        checkpoint.save(path, ts, step.optimizer)
-        out['save_ms'] = (time.perf_counter() - t0) * 1e3
-        out['bytes'] = Path(path).stat().st_size
-        t0 = time.perf_counter()
-        restored = checkpoint.restore(path, ts, step.optimizer)
-        torch.cuda.synchronize()
-        out['restore_ms'] = (time.perf_counter() - t0) * 1e3
-    if cases.state_diff(restored, ts, 'restored') != 0:
-        raise AssertionError('the restored state differs')
-    a, b, errs = ts, restored, []
-    for i in range(2):
-        a, ma = step(a)
-        b, mb = step(b)
-        errs.append(max([cases.state_diff(a, b, f'resumed step {i}')]
-                        + [abs(float(ma[k]) - float(mb[k])) for k in ma]))
-    if max(errs) != 0:
-        raise AssertionError(f'resumed steps differ: {errs}')
-    log(f'[ckpt] recipe TrainState ({MAIN_B} envs, hidden 128): '
-        f'{out["bytes"]} bytes, save {out["save_ms"]:.2f} ms, restore '
-        f'{out["restore_ms"]:.2f} ms; 2 graphed steps after the restore '
-        f'equal the uninterrupted ones bit for bit')
+        for fmt, name in (('npz', 'train_state.npz'),
+                          ('orbax', 'train_state')):
+            path = Path(tmp) / name
+            t0 = time.perf_counter()
+            checkpoint.save(str(path), ts, step.optimizer)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            restored = checkpoint.restore(str(path), ts, step.optimizer)
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            if cases.state_diff(restored, ts, f'restored {fmt}') != 0:
+                raise AssertionError(f'the restored {fmt} state differs')
+            a, b, errs = ts, restored, []
+            for i in range(2):
+                a, ma = step(a)
+                b, mb = step(b)
+                errs.append(max([cases.state_diff(a, b, f'resumed step {i}')]
+                                + [abs(float(ma[k]) - float(mb[k]))
+                                   for k in ma]))
+            if max(errs) != 0:
+                raise AssertionError(f'resumed {fmt} steps differ: {errs}')
+            out[fmt] = {'bytes': _dir_bytes(path), 'save_ms': save_ms,
+                        'restore_ms': restore_ms, 'resumed_max_abs': errs}
+            log(f'[ckpt] recipe TrainState ({MAIN_B} envs, hidden 128) as '
+                f'{"a .npz file" if fmt == "npz" else "an orbax directory"}'
+                f': {out[fmt]["bytes"]} bytes, save {save_ms:.2f} ms, '
+                f'restore {restore_ms:.2f} ms; 2 graphed steps after the '
+                f'restore equal the uninterrupted ones bit for bit ({smi})')
+
+    record = cases.fixture_record()
+    recipe = (record['env'], record['envs'], record['config'],
+              record['run_updates'])
+    if recipe != ('Lander3D-v0', MAIN_B, PPO_CFG, PPO_RUN_UPDATES):
+        raise AssertionError(f'the fixture is of another recipe: {recipe}')
+    t0 = time.perf_counter()
+    entries = orbax_format.read(str(cases.FIXTURE))
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jts = checkpoint.restore(str(cases.FIXTURE), ts, step.optimizer)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    bad = cases.fixture_mismatches(jts, step.optimizer, record)
+    if bad or len(entries) != len(record['leaves']):
+        raise AssertionError(f'the JAX checkpoint restores wrong at {bad}')
+    nxt, m = step(jts)
+    torch.cuda.synchronize()
+    gaps = {}
+    for k, want in record['next_update_metrics'].items():
+        got = float(m[k])
+        gaps[k] = {'port': got, 'jax': want, 'abs': abs(got - want),
+                   'rel': abs(got - want) / abs(want) if want else None}
+    out['jax_fixture'] = {
+        'bytes': _dir_bytes(cases.FIXTURE), 'decode_s': decode_s,
+        'restore_ms': restore_ms, 'leaves': len(entries),
+        'metric_gaps': gaps, 'rtol': FIXTURE_METRIC_RTOL,
+        'atol': FIXTURE_METRIC_ATOL}
+    log(f'[ckpt] the JAX package\'s orbax checkpoint of the recipe after '
+        f'one update (tests/data/jax_orbax_lander3d/, OCDBT, '
+        f'{out["jax_fixture"]["bytes"]} bytes): decoded on the host in '
+        f'{decode_s:.3f} s, restored onto the card in {restore_ms:.1f} ms; '
+        f'{len(entries)} entries, every leaf equal to its recorded SHA-256 '
+        f'({smi})')
+    log('[ckpt] one graphed update from it against JAX\'s recorded next '
+        'update (|port - jax| <= '
+        f'{FIXTURE_METRIC_RTOL} |jax| + {FIXTURE_METRIC_ATOL}): '
+        + ', '.join(f'{k} {g["port"]:.6g} vs {g["jax"]:.6g} (rel '
+                    f'{g["rel"] if g["rel"] is None else format(g["rel"], ".2e")})'
+                    for k, g in gaps.items()))
+    outside = [k for k, g in gaps.items() if not (
+        math.isfinite(g['port']) and g['abs'] <= FIXTURE_METRIC_RTOL
+        * abs(g['jax']) + FIXTURE_METRIC_ATOL)]
+    if outside or int(nxt.update_idx) != record['updates_before_save'] + 1:
+        raise AssertionError(f'the update from the JAX checkpoint: '
+                             f'{outside} outside the tolerance, update_idx '
+                             f'{int(nxt.update_idx)}')
     return out
 
 
@@ -1857,7 +1931,7 @@ def main(argv=None):
     if args.dist_only:
         _, step, ts = ppo_phase()
         log(json.dumps({'dist': dist_phase(step),
-                        'ckpt': ckpt_phase(step, ts),
+                        'ckpt': ckpt_phase(step, ts, smi),
                         'trace': trace_phase(step, ts), 'card': smi}))
         return 0
     device = torch.device('cuda')
@@ -1868,7 +1942,7 @@ def main(argv=None):
     ppo_out, step, ts = ppo_phase()
     log(json.dumps({'ppo': ppo_out, 'card': smi}))
     dist_out = dist_phase(step)
-    ckpt_out = ckpt_phase(step, ts)
+    ckpt_out = ckpt_phase(step, ts, smi)
     trace_out = trace_phase(step, ts)
     log(json.dumps({'dist': dist_out, 'ckpt': ckpt_out, 'trace': trace_out,
                     'card': smi}))

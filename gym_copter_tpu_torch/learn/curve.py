@@ -8,9 +8,11 @@ scripts/train_curve.py, with its flags, defaults and JSON schema.
 Trains on the card (`--device cpu` for the CPU) for each seed and writes
 the deterministic-eval curves, the cross-seed final-window statistics, the
 wall seconds of each run, and the card's name and power limit as
-`nvidia-smi` reports them.  `--ckpt PATH.npz` saves the last seed's whole
-TrainState through utils/checkpoint.py, in the JAX package's .npz layout,
-so that either package restores it.
+`nvidia-smi` reports them.  `--ckpt PATH` saves the last seed's whole
+TrainState through utils/checkpoint.py, as a .npz file or, for a path not
+ending in .npz, an orbax checkpoint directory (the JAX package's two
+formats), so that either package restores it; a path neither can be
+written at raises before training.
 """
 
 import argparse
@@ -99,8 +101,9 @@ def parser():
                    help='updates at the tail over which "final" is averaged')
     p.add_argument('--out', default='curve.json')
     p.add_argument('--ckpt', default=None,
-                   help='.npz file for the last seed\'s whole TrainState '
-                        '(utils/checkpoint.py; restores in either package)')
+                   help='.npz file or orbax directory for the last seed\'s '
+                        'whole TrainState (utils/checkpoint.py; restores in '
+                        'either package)')
     p.add_argument('--log-every', type=int, default=50)
     p.add_argument('--device', default=None,
                    help='torch device; default the card')

@@ -3,11 +3,12 @@ scripts/train_hover3d.py, with its flags and JSON.
 
 Trains the actor-learner from a motors-off policy on the card (`--device
 cpu` for the CPU) and records the deterministic-eval learning curve;
-`--ckpt PATH.npz` saves the final TrainState through utils/checkpoint.py
-(the JAX package's .npz layout; its orbax directory format is not ported).
+`--ckpt PATH` saves the final TrainState through utils/checkpoint.py: a
+.npz file, or an orbax checkpoint directory for a path not ending in .npz
+(the JAX package's two formats).
 
     python3 -m gym_copter_tpu_torch.learn.train_hover3d [--updates N]
-        [--envs B] [--seed S] [--out curve.json] [--ckpt state.npz]
+        [--envs B] [--seed S] [--out curve.json] [--ckpt state.npz|DIR]
 """
 
 import argparse
@@ -26,7 +27,8 @@ def main(argv=None):
     p.add_argument('--lr', type=float, default=1e-3)
     p.add_argument('--out', default='hover3d_curve.json')
     p.add_argument('--ckpt', default=None,
-                   help='.npz file for the final TrainState')
+                   help='.npz file or orbax directory for the final '
+                        'TrainState')
     p.add_argument('--log-every', type=int, default=50)
     p.add_argument('--device', default=None,
                    help='torch device; default the card')

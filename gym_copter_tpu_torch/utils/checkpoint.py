@@ -1,12 +1,14 @@
 """Checkpoint and resume of the whole PPO training state, the counterpart of
-`gym_copter_tpu/utils/checkpoint.py`'s `.npz` format.
+`gym_copter_tpu/utils/checkpoint.py`, in both of its formats.
 
 A `learn.ppo.TrainState` (params, optimizer state, env state, obs, key,
-update count) is one file: a killed run restored from it continues bit for
-bit.  The leaves are stored as `leaf_{i}` in the order of `jax.tree.leaves`
-of the JAX package's TrainState, with its dtypes (the key as two uint32
-words, counts int32), so that a file written by either package restores in
-the other:
+update count) is saved whole: a killed run restored from it continues bit
+for bit.  As in the JAX package, a path ending in `.npz` is one numpy file
+and any other path is an orbax PyTree checkpoint directory
+(`orbax_format.py`), and a checkpoint written by either package restores in
+the other.  Both hold the leaves of the JAX package's TrainState, in the
+order of `jax.tree.leaves` and with its dtypes (the key as two uint32
+words, counts int32):
 
   * params: actor then critic layers, each bias before its weight (JAX's
     dicts flatten by sorted key), then log_std;
@@ -16,9 +18,14 @@ the other:
     for a constant rate), so `save` and `restore` take the optimizer;
   * env state in field order, obs, key, update_idx.
 
-The save is atomic: a temporary file in the same directory, fsynced, then
-renamed over the target.  The JAX package's orbax directory format is not
-ported; a path that does not end in `.npz` raises.
+The `.npz` file names them `leaf_{i}`; the orbax directory by their JAX
+tree paths (`('params', 'actor', '0', 'b')`, ...), with optax's empty
+states (the clip's, and a constant rate's) as the entries orbax keeps no
+data for.
+
+Either save is atomic: the `.npz` is written to a temporary file in the
+same directory, fsynced, then renamed over the target; the directory is
+written beside the target and renamed into its place (`orbax_format.write`).
 """
 
 from __future__ import annotations
@@ -29,16 +36,25 @@ import tempfile
 import numpy as np
 import torch
 
-from gym_copter_tpu_torch.core.tree import tree_leaves, tree_map
+from gym_copter_tpu_torch.core.tree import tree_map
 from gym_copter_tpu_torch.learn import optim
 from gym_copter_tpu_torch.learn.ppo import ActorCritic, TrainState
+from gym_copter_tpu_torch.utils import orbax_format
 
 
 def check_path(path: str) -> None:
-    """Raises unless `path` names a .npz file."""
-    if not path.endswith('.npz'):
-        raise ValueError(f'{path!r}: the port writes .npz checkpoints only '
-                         f'(the orbax directory format is not ported)')
+    """Raises unless a checkpoint can be written at `path`: a .npz file or
+    an orbax directory, inside an existing writable directory, where no
+    entry of the other kind stands."""
+    parent = os.path.dirname(os.path.abspath(path))
+    if not os.path.isdir(parent) or not os.access(parent, os.W_OK | os.X_OK):
+        raise ValueError(f'{path!r}: {parent!r} is not a writable directory')
+    if path.endswith('.npz'):
+        if os.path.isdir(path):
+            raise ValueError(f'{path!r} is a directory, not a .npz file')
+    elif os.path.lexists(path) and not os.path.isdir(path):
+        raise ValueError(f'{path!r} is a file; a path that does not end in '
+                         f'.npz names an orbax checkpoint directory')
 
 
 def _jax_param_order(leaves):
@@ -50,36 +66,54 @@ def _jax_param_order(leaves):
     return out + [leaves[-1]]
 
 
+def _param_paths(n_leaves: int):
+    """JAX's params tree paths in leaf order."""
+    layers = (n_leaves - 1) // 4
+    return [(net, str(i), k) for net in ('actor', 'critic')
+            for i in range(layers) for k in ('b', 'w')] + [('log_std',)]
+
+
+def _named(prefix, tree):
+    """(path, tensor) of a NamedTuple of tensors, in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    return [x for name, sub in zip(tree._fields, tree)
+            for x in _named(prefix + (name,), sub)]
+
+
 def _slots(ts: TrainState, optimizer: optim.ClipAdam):
-    """The TrainState's tensors in JAX's leaf order, each with the numpy
-    dtype JAX stores it in (None: its own)."""
+    """JAX's TrainState tree as (path, tensor, numpy dtype) in leaf order:
+    the tensor None for the entries orbax keeps no data for, the dtype None
+    for the tensor's own."""
     scheduled = callable(optimizer.learning_rate)
     opt = ts.opt_state
-    slots = [(t, None) for t in _jax_param_order(ts.params.leaves())]
-    slots.append((opt.count, np.int32))
-    slots += [(t, None) for t in _jax_param_order(opt.mu)]
-    slots += [(t, None) for t in _jax_param_order(opt.nu)]
-    if scheduled:
-        slots.append((opt.schedule_count, np.int32))
-    slots += [(t, None) for t in tree_leaves(ts.env_state)]
-    slots += [(ts.obs, None), (ts.key, np.uint32), (ts.update_idx, np.int32)]
+    params = _param_paths(len(ts.params.leaves()))
+
+    def tree(prefix, leaves):
+        return [(prefix + p, t, None)
+                for p, t in zip(params, _jax_param_order(leaves))]
+
+    adam = ('opt_state', '1', '0')
+    slots = tree(('params',), ts.params.leaves())
+    slots.append((('opt_state', '0'), None, None))
+    slots.append((adam + ('count',), opt.count, np.int32))
+    slots += tree(adam + ('mu',), opt.mu) + tree(adam + ('nu',), opt.nu)
+    slots.append((('opt_state', '1', '1', 'count'), opt.schedule_count,
+                  np.int32) if scheduled else
+                 (('opt_state', '1', '1'), None, None))
+    slots += [(p, t, None) for p, t in _named(('env_state',), ts.env_state)]
+    slots += [(('obs',), ts.obs, None), (('key',), ts.key, np.uint32),
+              (('update_idx',), ts.update_idx, np.int32)]
     return slots
 
 
-def save(path: str, ts: TrainState, optimizer: optim.ClipAdam) -> None:
-    """Write `ts` to the .npz file `path` atomically; `optimizer` is the
-    one whose state `ts.opt_state` is."""
-    check_path(path)
-    arrays = {}
-    for i, (t, dtype) in enumerate(_slots(ts, optimizer)):
-        a = t.detach().cpu().numpy()
-        arrays[f'leaf_{i}'] = a if dtype is None else a.astype(dtype)
+def _save_npz(path: str, arrays) -> None:
     directory = os.path.dirname(os.path.abspath(path))
     fd, tmp = tempfile.mkstemp(dir=directory, suffix='.tmp.npz',
                                prefix=os.path.basename(path) + '.')
     try:
         with os.fdopen(fd, 'wb') as f:
-            np.savez(f, **arrays)
+            np.savez(f, **{f'leaf_{i}': a for i, a in enumerate(arrays)})
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
@@ -93,21 +127,65 @@ def save(path: str, ts: TrainState, optimizer: optim.ClipAdam) -> None:
         os.close(dir_fd)
 
 
+def leaves(ts: TrainState, optimizer: optim.ClipAdam
+           ) -> dict[tuple[str, ...], np.ndarray | None]:
+    """JAX's TrainState leaves of `ts` by tree path, in leaf order and with
+    JAX's dtypes, as a checkpoint holds them (None where orbax keeps no
+    data); `optimizer` is the one whose state `ts.opt_state` is."""
+    out = {}
+    for p, t, dtype in _slots(ts, optimizer):
+        a = None if t is None else t.detach().cpu().numpy()
+        out[p] = a if dtype is None or a is None else a.astype(dtype)
+    return out
+
+
+def save(path: str, ts: TrainState, optimizer: optim.ClipAdam) -> None:
+    """Write `ts` atomically to the .npz file or orbax directory `path`;
+    `optimizer` is the one whose state `ts.opt_state` is."""
+    check_path(path)
+    entries = leaves(ts, optimizer)
+    if path.endswith('.npz'):
+        _save_npz(path, [a for a in entries.values() if a is not None])
+    else:
+        orbax_format.write(path, entries)
+
+
+def _load(path: str, slots) -> list[np.ndarray]:
+    """The arrays of the checkpoint at `path` in the order of `slots`'
+    tensors."""
+    if path.endswith('.npz'):
+        n = sum(t is not None for _, t, _ in slots)
+        with np.load(path) as data:
+            if len(data.files) != n:
+                raise ValueError(f'{path!r} holds {len(data.files)} leaves; '
+                                 f'the template has {n}')
+            return [data[f'leaf_{i}'] for i in range(n)]
+    entries = orbax_format.read(path)
+    want = [p for p, t, _ in slots if t is not None]
+    have = {p for p, a in entries.items() if a is not None}
+    if have != set(want):
+        raise ValueError(f'{path!r}: leaves {sorted(have - set(want))} are '
+                         f'not in the template, {sorted(set(want) - have)} '
+                         f'are missing')
+    return [entries[p] for p in want]
+
+
 def restore(path: str, template: TrainState,
             optimizer: optim.ClipAdam) -> TrainState:
-    """The TrainState saved in `path`, with the structure of `template` and
-    every tensor on its template's device and dtype."""
-    check_path(path)
+    """The TrainState saved at `path` (a .npz file or an orbax directory),
+    with the structure of `template` and every tensor on its template's
+    device and dtype."""
     slots = _slots(template, optimizer)
-    with np.load(path) as data:
-        if len(data.files) != len(slots):
-            raise ValueError(f'{path!r} holds {len(data.files)} leaves; the '
-                             f'template has {len(slots)}')
-        arrays = [data[f'leaf_{i}'] for i in range(len(slots))]
+    arrays = _load(path, slots)
+    tensors = [(p, t) for p, t, _ in slots if t is not None]
+    for a, (p, t) in zip(arrays, tensors):
+        if a.shape != tuple(t.shape):
+            raise ValueError(f'{path!r}: {p} has shape {a.shape}, the '
+                             f'template {tuple(t.shape)}')
     leaves = iter([
         torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32 else a)
         .to(device=t.device, dtype=t.dtype)
-        for a, (t, _) in zip(arrays, slots)])
+        for a, (_, t) in zip(arrays, tensors)])
 
     def params():  # JAX's order back to ActorCritic.leaves() order
         jax_order = [next(leaves) for _ in template.params.leaves()]

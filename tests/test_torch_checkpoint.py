@@ -1,8 +1,9 @@
 """The port's checkpoint (gym_copter_tpu_torch/utils/checkpoint.py) against
-the JAX package's (gym_copter_tpu/utils/checkpoint.py): a resumed step is
-bit-equal to an uninterrupted one, files cross between the packages both
-ways, the save is atomic, and a killed run resumes bit for bit in a new
-process (the port's mirror of tests/test_kill_resume.py)."""
+the JAX package's (gym_copter_tpu/utils/checkpoint.py), in both formats
+(.npz files and orbax directories): a resumed step is bit-equal to an
+uninterrupted one, checkpoints cross between the packages both ways, the
+save is atomic, and a killed run resumes bit for bit in a new process (the
+port's mirror of tests/test_kill_resume.py)."""
 
 import json
 import os
@@ -28,7 +29,7 @@ from gym_copter_tpu_torch.core.tree import tree_leaves
 from gym_copter_tpu_torch.core.types import EnvParams
 from gym_copter_tpu_torch.envs import tasks
 from gym_copter_tpu_torch.learn import optim, ppo
-from gym_copter_tpu_torch.utils import checkpoint
+from gym_copter_tpu_torch.utils import checkpoint, zstd
 
 PARAMS = EnvParams(vehicle=vehicles.DJI_PHANTOM)
 JPARAMS = JEnvParams(vehicle=jvehicles.DJI_PHANTOM)
@@ -124,7 +125,8 @@ def test_jax_checkpoint_restores_in_the_port_and_back(tmp_path, scheduled):
 
 def test_failed_save_leaves_the_old_file_whole(tmp_path, monkeypatch):
     """A save that fails while writing leaves the earlier checkpoint as it
-    was and no temporary file; a directory (orbax) path raises."""
+    was and no temporary file; a path neither format can take (a file
+    where an orbax directory would go) raises and is left as it was."""
     step, opt, ts = _port()
     path = tmp_path / 'ckpt.npz'
     checkpoint.save(str(path), ts, opt)
@@ -142,9 +144,123 @@ def test_failed_save_leaves_the_old_file_whole(tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path)) == ['ckpt.npz']
     monkeypatch.undo()
     _assert_equal(checkpoint.restore(str(path), ts, opt), ts)
+    taken = tmp_path / 'ckpt_dir'  # a file where a directory would go
+    taken.write_text('not a checkpoint')
     with pytest.raises(ValueError, match='orbax'):
-        checkpoint.save(str(tmp_path / 'ckpt_dir'), ts, opt)
+        checkpoint.save(str(taken), ts, opt)
+    assert taken.read_text() == 'not a checkpoint'
 
+
+
+@pytest.mark.parametrize('scheduled', [False, True])
+def test_orbax_resumed_step_equals_uninterrupted(tmp_path, scheduled):
+    """The same resume through an orbax directory: the restored state
+    equals the saved one and the next step is bit-equal."""
+    opt = (optim.ClipAdam(0.5, optim.linear_schedule(1e-3, 1e-4, 20))
+           if scheduled else None)
+    step, opt, ts = _port(opt)
+    for _ in range(2):
+        ts, _ = step(ts)
+    path = str(tmp_path / 'ckpt')
+    checkpoint.save(path, ts, opt)
+    assert (tmp_path / 'ckpt' / '_METADATA').is_file()
+    restored = checkpoint.restore(path, ts, opt)
+    _assert_equal(restored, ts)
+    cont, m_cont = step(ts)
+    res, m_res = step(restored)
+    _assert_equal(res, cont)
+    assert all(torch.equal(m_cont[k], m_res[k]) for k in m_cont)
+
+
+@pytest.mark.parametrize('scheduled', [False, True])
+def test_jax_orbax_checkpoint_restores_in_the_port_and_back(tmp_path,
+                                                            scheduled):
+    """A float64 JAX TrainState saved by the JAX package as an orbax
+    (OCDBT) directory restores in the port equal to its conversion, and
+    one port step from it matches JAX's step from the same checkpoint
+    within the PPO tests' tolerances (below); saved
+    by the port as a directory, it restores in the JAX package with JAX's
+    dtypes and values, and a JAX step from it equals the step from the
+    original."""
+    jcfg = jppo.PPOConfig(**KW)
+    jopt = None
+    opt = optim.ClipAdam(jcfg.max_grad_norm, jcfg.learning_rate)
+    if scheduled:
+        jopt = optax.chain(optax.clip_by_global_norm(0.5),
+                           optax.adam(optax.linear_schedule(1e-3, 1e-4, 20)))
+        opt = optim.ClipAdam(0.5, optim.linear_schedule(1e-3, 1e-4, 20))
+    jstep, jopt = jppo.make_train_step(JPARAMS, jtasks.HOVER_3D, jcfg,
+                                       jax.random.PRNGKey(0),
+                                       jnp.arange(8, dtype=jnp.int32),
+                                       optimizer=jopt)
+    jstep = jax.jit(jstep)
+    jts = jppo.init_train_state(jax.random.PRNGKey(1), JPARAMS,
+                                jtasks.HOVER_3D, jcfg, 8, jopt,
+                                dtype=jnp.float64)
+    jts, _ = jstep(jts)
+    jpath = str(tmp_path / 'jax_dir')
+    jcheckpoint.save(jpath, jts)
+    assert json.loads(Path(jpath, '_METADATA').read_text())['use_ocdbt']
+    want = convert.train_state_from_numpy(jts, CPU)
+    got = checkpoint.restore(jpath, want, opt)
+    _assert_equal(got, want)
+
+    step, _ = ppo.make_train_step(PARAMS, tasks.HOVER_3D, ppo.PPOConfig(**KW),
+                                  prng.PRNGKey(0, CPU),
+                                  torch.arange(8, dtype=torch.int32),
+                                  optimizer=opt)
+    port_next, m = step(got)
+    jnext, jm = jstep(jts)
+    # float64: rtol 1e-9 as tests/test_torch_ppo.py holds a step; with the
+    # schedule, the float32 tolerances of its Hover3D step (rtol 1e-4,
+    # atol 1e-6), since the port's scheduled float64 step differs from
+    # JAX's with or without a checkpoint (measured: params 5.9e-11
+    # absolute, 7e-7 relative; Adam's mu 2.5e-6 relative)
+    rtol, atol = (1e-4, 1e-6) if scheduled else (1e-9, 1e-12)
+    for a, b in zip(tree_leaves(port_next),
+                    tree_leaves(convert.train_state_from_numpy(jnext, CPU))):
+        if a.is_floating_point():
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=rtol,
+                                       atol=atol * float(b.abs().max()))
+        else:
+            assert torch.equal(a, b)
+    for k, v in jm.items():
+        np.testing.assert_allclose(float(m[k]), float(v), rtol=rtol,
+                                   atol=atol, err_msg=k)
+
+    path = str(tmp_path / 'port_dir')
+    checkpoint.save(path, got, opt)
+    back = jcheckpoint.restore(path, jts)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jts)):
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    next_a, _ = jstep(back)
+    for a, b in zip(jax.tree.leaves(next_a), jax.tree.leaves(jnext)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_failed_orbax_save_leaves_the_old_directory_whole(tmp_path,
+                                                          monkeypatch):
+    """An orbax save that fails while writing leaves the earlier
+    checkpoint directory restorable as it was and no temporary directory;
+    a later save replaces it."""
+    step, opt, ts = _port()
+    path = tmp_path / 'ckpt'
+    checkpoint.save(str(path), ts, opt)
+    ts2, _ = step(ts)
+
+    def broken(data):
+        raise OSError('disk full')
+
+    monkeypatch.setattr(zstd, 'compress', broken)
+    with pytest.raises(OSError, match='disk full'):
+        checkpoint.save(str(path), ts2, opt)
+    assert sorted(os.listdir(tmp_path)) == ['ckpt']
+    monkeypatch.undo()
+    _assert_equal(checkpoint.restore(str(path), ts, opt), ts)
+    checkpoint.save(str(path), ts2, opt)
+    _assert_equal(checkpoint.restore(str(path), ts2, opt), ts2)
+    assert sorted(os.listdir(tmp_path)) == ['ckpt']
 
 WORKER = r'''
 import json, sys

@@ -27,8 +27,10 @@ from gym_copter_tpu_torch.ops import fused_rollout as fr
 from gym_copter_tpu_torch.core import prng
 from gym_copter_tpu_torch.core.tree import tree_map
 from gym_copter_tpu_torch.learn import ppo
-from torch_cuda_cases import (compare, reset_state, run_kernel, scenarios,
-                              state_diff, state_tensors, train_state_to)
+from torch_cuda_cases import (FIXTURE, compare, fixture_mismatches,
+                              fixture_record, fixture_template, reset_state,
+                              run_kernel, scenarios, state_diff,
+                              state_tensors, train_state_to)
 
 SCENARIOS = scenarios()
 _plain = {}
@@ -249,6 +251,40 @@ def test_checkpoint_resumes_graphed_steps(tmp_path):
         a, _ = step(a)
         b, _ = step(b)
         assert state_diff(a, b, f'resumed step {i}') == 0.0
+
+
+@pytest.mark.cuda
+def test_checkpoint_resumes_graphed_steps_from_a_directory(tmp_path):
+    """The same through an orbax checkpoint directory."""
+    from gym_copter_tpu_torch.utils import checkpoint
+
+    device = _card()
+    env, step, ts = _small_step(device)
+    ts, _ = step(ts)
+    path = str(tmp_path / 'ts')
+    checkpoint.save(path, ts, step.optimizer)
+    restored = checkpoint.restore(path, ts, step.optimizer)
+    assert restored.obs.is_cuda and state_diff(restored, ts, 'restore') == 0
+    a, b = ts, restored
+    for i in range(2):
+        a, _ = step(a)
+        b, _ = step(b)
+        assert state_diff(a, b, f'resumed step {i}') == 0.0
+
+
+@pytest.mark.cuda
+def test_jax_orbax_fixture_restores_on_the_card():
+    """The JAX package's orbax checkpoint of the recipe after one update
+    (tests/data/jax_orbax_lander3d/: OCDBT, zstd frames without a content
+    size) restores on the card, every leaf equal to its recorded SHA-256."""
+    from gym_copter_tpu_torch.utils import checkpoint
+
+    device = _card()
+    record = fixture_record()
+    template, opt = fixture_template(record, device)
+    ts = checkpoint.restore(str(FIXTURE), template, opt)
+    assert ts.obs.is_cuda and int(ts.update_idx) == 1
+    assert fixture_mismatches(ts, opt, record) == []
 
 
 @pytest.mark.cuda

@@ -1,5 +1,7 @@
 """Importing the port's user-facing modules loads neither JAX nor the JAX
-package (the port's no-JAX rule; the GPU machine has no JAX)."""
+package (the port's no-JAX rule; the GPU machine has no JAX), nor orbax,
+tensorstore or zstandard (the port reads and writes orbax checkpoints with
+its own utils/zstd.py, utils/ocdbt.py and utils/orbax_format.py)."""
 
 import os
 import subprocess
@@ -40,16 +42,25 @@ MODULES = [
     'gym_copter_tpu_torch.bench.profile_ppo',
     'gym_copter_tpu_torch.bench.vision',
     'gym_copter_tpu_torch.bench.scaling',
+    'gym_copter_tpu_torch.utils.zstd',
+    'gym_copter_tpu_torch.utils.ocdbt',
+    'gym_copter_tpu_torch.utils.orbax_format',
+    'gym_copter_tpu_torch.utils.checkpoint',
 ]
+# what the GPU machine lacks, besides JAX: the libraries the JAX package
+# writes orbax checkpoints with
+LIBRARIES = ('orbax', 'tensorstore', 'zstandard')
 
 
 def test_imports_load_no_jax():
     code = ('import importlib, sys\n'
             f'for m in {MODULES!r}:\n'
             '    importlib.import_module(m)\n'
+            f'libs = {LIBRARIES!r}\n'
             'bad = sorted(m for m in sys.modules if m == "jax"\n'
             '             or m.startswith(("jax.", "gym_copter_tpu."))\n'
-            '             or m == "gym_copter_tpu")\n'
+            '             or m == "gym_copter_tpu"\n'
+            '             or m.split(".")[0] in libs)\n'
             'print(bad)\n')
     env = dict(os.environ)
     env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')

@@ -6,7 +6,16 @@ Each case is every task kind with and without random resets, Lander3D at
 4096 envs, and batches that are not a multiple of 128 (1000 envs) or of
 8 (4099).  Kernel and plain version must agree bit for bit in every field
 (`compare`), at every lanes-per-env choice (`run_kernel`).
+
+The JAX package's orbax checkpoint of the PPO recipe after one update
+(tests/data/jax_orbax_lander3d/, made by tests/make_jax_orbax_fixture.py)
+and its record are read here too (`FIXTURE`, `fixture_record`,
+`fixture_template`, `fixture_mismatches`).
 """
+
+import hashlib
+import json
+from pathlib import Path
 
 import torch
 
@@ -266,3 +275,48 @@ def visual_graphed_vs_eager(name, b, res, dvs, num_steps, device):
         *graphed, got = graph(*graphed)
         differ += not torch.equal(want, got)
     return differ, graph, graphed
+
+
+FIXTURE = Path(__file__).resolve().parent / 'data' / 'jax_orbax_lander3d'
+
+
+def fixture_record():
+    """The fixture's record: the recipe, each leaf's path, dtype, shape and
+    SHA-256, and JAX's metrics of the next update."""
+    with open(FIXTURE.parent / 'jax_orbax_lander3d.json') as f:
+        return json.load(f)
+
+
+def fixture_template(record, device):
+    """(TrainState template, optimizer) of the fixture's recipe on
+    `device`: the structure `checkpoint.restore` fills."""
+    from gym_copter_tpu_torch.core import prng
+    from gym_copter_tpu_torch.envs.registry import make
+    from gym_copter_tpu_torch.learn import optim, ppo
+
+    env = make(record['env'], num_envs=record['envs'], device=device)
+    cfg = ppo.resolve_minibatches(ppo.PPOConfig(**record['config']),
+                                  record['envs'])
+    opt = optim.ClipAdam(cfg.max_grad_norm, optim.linear_schedule(
+        cfg.learning_rate, 0.0,
+        record['run_updates'] * cfg.epochs * cfg.minibatches))
+    return ppo.init_train_state(prng.PRNGKey(0, device), env.params,
+                                env.spec, cfg, record['envs'], opt), opt
+
+
+def fixture_mismatches(ts, optimizer, record):
+    """The tree paths at which `ts`, as JAX's leaves, differs from the
+    record in dtype, shape or SHA-256 (an empty list where every leaf is
+    the fixture's, bit for bit)."""
+    from gym_copter_tpu_torch.utils import checkpoint
+
+    got = checkpoint.leaves(ts, optimizer)
+    want = {tuple(e['path']): e for e in record['leaves']}
+    bad = sorted(set(got) ^ set(want))
+    for path in set(got) & set(want):
+        a, e = got[path], want[path]
+        if (a is None) != (e['sha256'] is None) or a is not None and (
+                (a.dtype.str, list(a.shape)) != (e['dtype'], e['shape'])
+                or hashlib.sha256(a.tobytes()).hexdigest() != e['sha256']):
+            bad.append(path)
+    return bad
