@@ -12,7 +12,12 @@ float64 the two agree to rounding:
     divided by 1 - b^count, and mu_hat / (sqrt(nu_hat) + eps);
   * the learning rate: updates scaled by -lr, where a schedule reads its own
     count before incrementing it (`optax.scale_by_schedule`);
-  * `linear_schedule` as `optax.polynomial_schedule` with power 1.
+  * `linear_schedule` as `optax.linear_schedule` evaluates inside the JAX
+    package's jitted train step, not as it evaluates eagerly: XLA's CPU
+    compile turns `count / T` into `count * f32(1/T)` and contracts the rest
+    into two float32 fused multiply-adds, which differ from the eager
+    formula by one float32 ULP at many counts (and so move a float64 step
+    by ~1e-10).
 
 There is no `torch.optim` here: the PPO update's `target_kl` guard keeps the
 old moments and counts where it stops, which takes a `torch.where` over the
@@ -22,11 +27,11 @@ is plain tensors and no step reads a value back to the host.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, List, NamedTuple, Union
 
+import numpy as np
 import torch
-
-from gym_copter_tpu_torch.core.device import div
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -47,15 +52,53 @@ def safe_increment(count: torch.Tensor) -> torch.Tensor:
     return torch.where(count < _INT32_MAX, count + 1, count)
 
 
+def fma32(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
+    """The float32 fused multiply-add a * b + c, rounded once, for a float64
+    tensor `a` and floats b, c that all hold float32 values.
+
+    The float64 product is exact (24 + 24 bits).  The float64 sum is made
+    round-to-odd: where TwoSum says it was inexact and its last bit is even,
+    it steps one float64 ULP toward the exact sum.  Rounding that to float32
+    (24 bits, two or more fewer than float64's 53) is then the correctly
+    rounded sum, with no double rounding.  Plain elementwise ops, so the
+    CPU and the card give the same bits and a CUDA graph captures it."""
+    p = a * b
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    # toward the exact sum where it is inexact, s itself where it is exact:
+    # a nonzero err is a multiple of 2^-298 (two float32 ULPs multiplied),
+    # so err * 2^1000 lies far beyond s or overflows, on err's side
+    away = torch.nextafter(s, s + err * 2.0 ** 1000)
+    return torch.where((s.view(torch.int64) & 1) == 0, away,
+                       s).to(torch.float32)
+
+
 def linear_schedule(init_value: float, end_value: float,
                     transition_steps: int) -> Callable:
-    """`optax.linear_schedule`: count -> init + (end - init) * min(count,
-    steps) / steps as a float32 tensor (optax divides the int32 count into
-    float32, with x64 on as well); steps > 0."""
+    """`optax.linear_schedule` (count -> init + (end - init) * min(count,
+    steps) / steps, a float32 tensor; 0 < steps < 2^24) rounded as the JAX
+    package's jitted train step rounds it.
+
+    XLA's CPU compile of the schedule computes
+    `fma(fma(-c, f32(1/steps), 1), f32(init - end), f32(end))` in float32,
+    with c the clamped count and `init - end` the Python difference rounded
+    once (a weak-typed constant).  The first sum is exact in float64 (c is
+    an integer below 2^24 and f32(1/steps) >= 2^-24, so every bit of
+    c * f32(1/steps) lies at 2^-47 or above), so one rounding to float32
+    is the FMA's; the second is too when end is 0, and takes `fma32`
+    otherwise."""
+    if not 0 < transition_steps < 2 ** 24:
+        raise ValueError(f'transition_steps {transition_steps} outside '
+                         f'(0, 2^24)')
+    r = float(np.float32(1.0 / transition_steps))
+    d = float(np.float32(init_value - end_value))
+    e = float(np.float32(end_value))
+
     def schedule(count):
-        frac = 1 - div(torch.clamp(count, 0, transition_steps).to(
-            torch.float32), transition_steps)
-        return (init_value - end_value) * frac + end_value
+        c = torch.clamp(count, 0, transition_steps).to(torch.float64)
+        frac = (c * -r + 1).to(torch.float32).to(torch.float64)
+        return fma32(frac, d, e) if e else (frac * d).to(torch.float32)
 
     return schedule
 

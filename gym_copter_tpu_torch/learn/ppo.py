@@ -679,13 +679,13 @@ def train(env_name: str = 'Hover3D-v0', num_envs: int = 1024,
           num_updates: int = 200, seed: int = 0,
           cfg: PPOConfig = PPOConfig(), env_params: EnvParams = None,
           log_every: int = 10, callback=None, keep_best: bool = False,
-          device=None, group=None):
+          device=None, group=None, dtype=torch.float32):
     """The training loop: make, init, num_updates train steps with the
     learning rate annealed linearly over every optimizer step, and a
     deterministic evaluation every `log_every` updates and at the last.
-    Runs on the card unless device='cpu'.  Returns (TrainState, history
-    [(update, metrics)]); with keep_best the params are the best evaluated
-    ones.
+    Runs on the card unless device='cpu'; `dtype` is the parameters' and
+    the env state's.  Returns (TrainState, history [(update, metrics)]);
+    with keep_best the params are the best evaluated ones.
 
     With a process `group` (parallel/sharding.py `init_world`), `num_envs`
     is the global batch and each rank steps its columns on `device`; the
@@ -709,7 +709,7 @@ def train(env_name: str = 'Hover3D-v0', num_envs: int = 1024,
                                                                 num_updates),
                                       group=group)
     ts = init_train_state(key, env_params, spec, cfg, hi - lo, optimizer,
-                          env_id_offset=lo)
+                          env_id_offset=lo, dtype=dtype)
     if group is not None:
         ts = ts._replace(params=sharding.replicate(ts.params, group),
                          opt_state=sharding.replicate(ts.opt_state, group))

@@ -31,6 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gym_copter_tpu_torch.utils.checkpoint import write_atomically
+
 
 class Actor(nn.Module):
     def __init__(self, obs_dim, act_dim):
@@ -162,6 +164,13 @@ class ObsNormalizer:
         return ((x - self.mean) / std).astype(np.float32)
 
 
+def save_state_file(path, state):
+    """`torch.save(state, path)` atomically: a save that fails or is killed
+    leaves the state file written before it whole, the one `--resume`
+    continues from."""
+    write_atomically(path, lambda f: torch.save(state, f))
+
+
 def evaluate(env, agent, episodes=10, norm=None):
     total = 0.0
     for ep in range(episodes):
@@ -211,15 +220,16 @@ def main(argv=None):
     p.add_argument('--state-checkpoint', default=None,
                    help='full training-state .pt (nets, targets, '
                         'optimizers, replay buffer, RNG states, normalizer, '
-                        'step/curve) written at every eval — enables '
-                        '--resume after a kill')
+                        'step/curve) written atomically at every eval — '
+                        'enables --resume after a kill')
     p.add_argument('--resume', action='store_true',
                    help='continue from --state-checkpoint if it exists.  '
                         'Learner state (nets/optimizers/buffer/RNG) resumes '
                         'exactly; the environment stream restarts from a '
                         'fresh reset (documented deviation: the adapter env '
                         'is not serialized), so the post-resume data stream '
-                        'differs from an uninterrupted run')
+                        'differs from an uninterrupted run.  Refused when '
+                        '--obs-norm disagrees with the saved state')
     args = p.parse_args(argv)
 
     torch.manual_seed(args.seed)
@@ -246,6 +256,12 @@ def main(argv=None):
     if args.resume and args.state_checkpoint \
             and os.path.exists(args.state_checkpoint):
         ck = torch.load(args.state_checkpoint, weights_only=False)
+        if (ck['norm'] is None) == args.obs_norm:
+            p.error(f'--obs-norm is {"on" if args.obs_norm else "off"}, but '
+                    f'{args.state_checkpoint} holds '
+                    + ('no normalizer statistics (saved without --obs-norm)'
+                       if ck['norm'] is None else
+                       'normalizer statistics (saved with --obs-norm)'))
         agent.actor.load_state_dict(ck['actor'])
         agent.actor_t.load_state_dict(ck['actor_t'])
         agent.critic.load_state_dict(ck['critic'])
@@ -269,7 +285,7 @@ def main(argv=None):
         buffer.ptr, buffer.full = n % buffer.size, n == buffer.size
         torch.set_rng_state(ck['torch_rng'])
         rng.bit_generator.state = ck['np_rng']
-        if norm is not None and ck.get('norm') is not None:
+        if norm is not None:
             norm.n, norm.mean, norm.m2 = ck['norm']
         curve, best = ck['curve'], ck['best']
         start_step, episodes = ck['step'], ck['episodes']
@@ -279,7 +295,7 @@ def main(argv=None):
     def save_state(step):
         if not args.state_checkpoint:
             return
-        torch.save({
+        save_state_file(args.state_checkpoint, {
             'actor': agent.actor.state_dict(),
             'actor_t': agent.actor_t.state_dict(),
             'critic': agent.critic.state_dict(),
@@ -295,7 +311,7 @@ def main(argv=None):
             'norm': (norm.n, norm.mean, norm.m2) if norm else None,
             'curve': curve, 'best': best,
             'step': step, 'episodes': episodes,
-        }, args.state_checkpoint)
+        })
 
     obs, _ = env.reset(seed=args.seed + episodes)
     ep_ret, ep_len = 0.0, 0

@@ -107,13 +107,17 @@ def _slots(ts: TrainState, optimizer: optim.ClipAdam):
     return slots
 
 
-def _save_npz(path: str, arrays) -> None:
+def write_atomically(path: str, write) -> None:
+    """Call `write(f)` on a temporary file in `path`'s directory, flush and
+    fsync it, rename it over `path` and fsync the directory: a write that
+    fails (or a kill) leaves the earlier file at `path` whole, and a failed
+    write removes its temporary file."""
     directory = os.path.dirname(os.path.abspath(path))
-    fd, tmp = tempfile.mkstemp(dir=directory, suffix='.tmp.npz',
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix='.tmp',
                                prefix=os.path.basename(path) + '.')
     try:
         with os.fdopen(fd, 'wb') as f:
-            np.savez(f, **{f'leaf_{i}': a for i, a in enumerate(arrays)})
+            write(f)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
@@ -125,6 +129,11 @@ def _save_npz(path: str, arrays) -> None:
         os.fsync(dir_fd)
     finally:
         os.close(dir_fd)
+
+
+def _save_npz(path: str, arrays) -> None:
+    write_atomically(path, lambda f: np.savez(
+        f, **{f'leaf_{i}': a for i, a in enumerate(arrays)}))
 
 
 def leaves(ts: TrainState, optimizer: optim.ClipAdam

@@ -62,6 +62,31 @@ def _assert_equal(a, b):
         assert x.dtype == y.dtype and torch.equal(x, y)
 
 
+def _assert_step_matches_jax(ts, opt, jts, jstep):
+    """One port step from `ts` (restored from JAX's checkpoint `jts`)
+    against JAX's jitted step from `jts`, to the float64 PPO tolerance of
+    tests/test_torch_ppo.py (rtol 1e-9, atol 1e-12 of each leaf's largest
+    element), with a constant rate or a schedule: the port rounds the
+    schedule as JAX's jitted step does.  Returns JAX's next state."""
+    step, _ = ppo.make_train_step(PARAMS, tasks.HOVER_3D, ppo.PPOConfig(**KW),
+                                  prng.PRNGKey(0, CPU),
+                                  torch.arange(8, dtype=torch.int32),
+                                  optimizer=opt)
+    port_next, m = step(ts)
+    jnext, jm = jstep(jts)
+    for a, b in zip(tree_leaves(port_next),
+                    tree_leaves(convert.train_state_from_numpy(jnext, CPU))):
+        if a.is_floating_point():
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-9,
+                                       atol=1e-12 * float(b.abs().max()))
+        else:
+            assert torch.equal(a, b)
+    for k, v in jm.items():
+        np.testing.assert_allclose(float(m[k]), float(v), rtol=1e-9,
+                                   atol=1e-12, err_msg=k)
+    return jnext
+
+
 @pytest.mark.parametrize('scheduled', [False, True])
 def test_resumed_step_equals_uninterrupted(tmp_path, scheduled):
     """Two steps, save, restore: the restored state equals the saved one
@@ -86,9 +111,10 @@ def test_resumed_step_equals_uninterrupted(tmp_path, scheduled):
 @pytest.mark.parametrize('scheduled', [False, True])
 def test_jax_checkpoint_restores_in_the_port_and_back(tmp_path, scheduled):
     """A float64 JAX TrainState saved by the JAX package restores in the
-    port equal to its conversion; saved by the port, it restores in the JAX
-    package with JAX's dtypes and values, and a JAX step from it equals
-    the step from the original."""
+    port equal to its conversion, and one port step from it matches JAX's
+    step (`_assert_step_matches_jax`); saved by the port, it restores in
+    the JAX package with JAX's dtypes and values, and a JAX step from it
+    equals the step from the original."""
     jcfg = jppo.PPOConfig(**KW)
     jopt = None
     opt = optim.ClipAdam(jcfg.max_grad_norm, jcfg.learning_rate)
@@ -110,6 +136,7 @@ def test_jax_checkpoint_restores_in_the_port_and_back(tmp_path, scheduled):
     want = convert.train_state_from_numpy(jts, CPU)
     got = checkpoint.restore(jpath, want, opt)
     _assert_equal(got, want)
+    _assert_step_matches_jax(got, opt, jts, jstep)
 
     path = str(tmp_path / 'port.npz')
     checkpoint.save(path, got, opt)
@@ -178,7 +205,7 @@ def test_jax_orbax_checkpoint_restores_in_the_port_and_back(tmp_path,
     """A float64 JAX TrainState saved by the JAX package as an orbax
     (OCDBT) directory restores in the port equal to its conversion, and
     one port step from it matches JAX's step from the same checkpoint
-    within the PPO tests' tolerances (below); saved
+    (`_assert_step_matches_jax`); saved
     by the port as a directory, it restores in the JAX package with JAX's
     dtypes and values, and a JAX step from it equals the step from the
     original."""
@@ -205,28 +232,7 @@ def test_jax_orbax_checkpoint_restores_in_the_port_and_back(tmp_path,
     got = checkpoint.restore(jpath, want, opt)
     _assert_equal(got, want)
 
-    step, _ = ppo.make_train_step(PARAMS, tasks.HOVER_3D, ppo.PPOConfig(**KW),
-                                  prng.PRNGKey(0, CPU),
-                                  torch.arange(8, dtype=torch.int32),
-                                  optimizer=opt)
-    port_next, m = step(got)
-    jnext, jm = jstep(jts)
-    # float64: rtol 1e-9 as tests/test_torch_ppo.py holds a step; with the
-    # schedule, the float32 tolerances of its Hover3D step (rtol 1e-4,
-    # atol 1e-6), since the port's scheduled float64 step differs from
-    # JAX's with or without a checkpoint (measured: params 5.9e-11
-    # absolute, 7e-7 relative; Adam's mu 2.5e-6 relative)
-    rtol, atol = (1e-4, 1e-6) if scheduled else (1e-9, 1e-12)
-    for a, b in zip(tree_leaves(port_next),
-                    tree_leaves(convert.train_state_from_numpy(jnext, CPU))):
-        if a.is_floating_point():
-            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=rtol,
-                                       atol=atol * float(b.abs().max()))
-        else:
-            assert torch.equal(a, b)
-    for k, v in jm.items():
-        np.testing.assert_allclose(float(m[k]), float(v), rtol=rtol,
-                                   atol=atol, err_msg=k)
+    jnext = _assert_step_matches_jax(got, opt, jts, jstep)
 
     path = str(tmp_path / 'port_dir')
     checkpoint.save(path, got, opt)

@@ -27,9 +27,10 @@ from gym_copter_tpu_torch.ops import fused_rollout as fr
 from gym_copter_tpu_torch.core import prng
 from gym_copter_tpu_torch.core.tree import tree_map
 from gym_copter_tpu_torch.learn import ppo
-from torch_cuda_cases import (FIXTURE, compare, fixture_mismatches,
-                              fixture_record, fixture_template, reset_state,
-                              run_kernel, scenarios, state_diff,
+from torch_cuda_cases import (FIXTURE, FLOOR_SCHEDULE, RECIPE_SCHEDULE,
+                              compare, fixture_mismatches, fixture_record,
+                              fixture_template, reset_state, run_kernel,
+                              scenarios, schedule_mismatches, state_diff,
                               state_tensors, train_state_to)
 
 SCENARIOS = scenarios()
@@ -230,6 +231,20 @@ def test_gloo_ranks_share_the_card():
                         timeout_s=300)
     assert report['totals_equal_one_rank']
     assert report['params_equal_across_ranks'] and not report['graphed']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('schedule,counts', [
+    (RECIPE_SCHEDULE, 38_402), (FLOOR_SCHEDULE, 32_002)],
+    ids=['recipe', 'floor'])
+def test_schedule_on_the_card_equals_the_cpu(schedule, counts):
+    """The recipe's learning-rate schedule (3e-4 to 0 over 600 x 64
+    optimizer steps), and train()'s default one (to 0.05 of the rate, over
+    500 x 64, through optim.fma32), on the card equal the CPU's at every
+    count, bit for bit: eagerly, and as a 0-dim count in a captured
+    graph."""
+    eager, graphed, n = schedule_mismatches(_card(), schedule)
+    assert (n, eager, graphed) == (counts, 0, 0)
 
 
 @pytest.mark.cuda

@@ -7,6 +7,9 @@ Each case is every task kind with and without random resets, Lander3D at
 8 (4099).  Kernel and plain version must agree bit for bit in every field
 (`compare`), at every lanes-per-env choice (`run_kernel`).
 
+The learning-rate schedules of the PPO recipe and of `train()`'s default
+floor are held against the CPU's at every count (`schedule_mismatches`).
+
 The JAX package's orbax checkpoint of the PPO recipe after one update
 (tests/data/jax_orbax_lander3d/, made by tests/make_jax_orbax_fixture.py)
 and its record are read here too (`FIXTURE`, `fixture_record`,
@@ -275,6 +278,37 @@ def visual_graphed_vs_eager(name, b, res, dvs, num_steps, device):
         *graphed, got = graph(*graphed)
         differ += not torch.equal(want, got)
     return differ, graph, graphed
+
+
+# the recipe's schedule: 3e-4 annealed to 0 over 600 updates x 4 epochs x
+# 16 minibatches; and train()'s default, to 0.05 of the rate (the sum
+# that takes optim.fma32), over 500 updates
+RECIPE_SCHEDULE = (3e-4, 0.0, 600 * 4 * 16)
+FLOOR_SCHEDULE = (3e-4, 3e-4 * 0.05, 500 * 4 * 16)
+
+
+def schedule_mismatches(device, schedule=RECIPE_SCHEDULE):
+    """The counts 0 to steps + 1 at which `optim.linear_schedule(*schedule)`
+    on `device` differs in any bit from the same schedule on the CPU:
+    (eagerly over the batch of counts, in a CUDA graph of one 0-dim count
+    as the update graph runs it, replayed at each count; the number of
+    counts)."""
+    from gym_copter_tpu_torch.core.graph import Graph
+    from gym_copter_tpu_torch.learn import optim
+
+    steps = schedule[2]
+    sched = optim.linear_schedule(*schedule)
+    counts = torch.arange(steps + 2, dtype=torch.int32)
+    want = sched(counts).view(torch.int32)
+    eager = sched(counts.to(device)).cpu().view(torch.int32)
+    graph = Graph(sched, warmup=1)
+    on_card = counts.to(device)
+    graphed = torch.empty(steps + 2, dtype=torch.float32, device=device)
+    for i in range(steps + 2):
+        graphed[i] = graph(on_card[i])
+    graphed = graphed.cpu().view(torch.int32)
+    return (int((eager != want).sum()), int((graphed != want).sum()),
+            steps + 2)
 
 
 FIXTURE = Path(__file__).resolve().parent / 'data' / 'jax_orbax_lander3d'
