@@ -34,6 +34,7 @@ from gym_copter_tpu_torch.core.types import EnvParams
 from gym_copter_tpu_torch.envs import base, registry
 from gym_copter_tpu_torch.envs.base import EnvState
 from gym_copter_tpu_torch.sensors.vision import DVS, VisionSensor
+from gym_copter_tpu_torch.utils import profiling
 
 
 def _state_names(spec):
@@ -69,7 +70,8 @@ class SingleCopterEnv:
             graphed = self.device.type == 'cuda'
         if graphed and self.device.type != 'cuda':
             raise ValueError('a graphed step needs a CUDA device')
-        self._graph = Graph(self._step, warmup=1) if graphed else None
+        self._graph = (Graph(self._step, warmup=1, name='single.step')
+                       if graphed else None)
         self._legacy_seeding = legacy_seeding
         self._dtype = dtype
         self._state: Optional[EnvState] = None
@@ -144,13 +146,30 @@ class SingleCopterEnv:
         return new_state, packed
 
     def step(self, action):
-        # keep full precision until the env-dtype cast (a float32 detour
-        # would break the float64 legacy bit-replay)
-        action = torch.as_tensor(np.asarray(action, np.float64)[:, None],
-                                 dtype=self._dtype).to(self.device)
-        step = self._graph or self._step
-        self._state, packed = step(self._state, action)
-        packed = packed.cpu().numpy()
+        """While the recorder of utils/profiling.py is on, the step is the
+        span `single.step` (with the device time of the env step, by one
+        CUDA event pair on the card), and in it `single.action_to_device`,
+        `graph.replay` (`single.eager_step` off the card) and
+        `single.obs_to_host`."""
+        on = profiling.recording()
+        timed = on and self.device.type == 'cuda'
+        with profiling.span('single.step', on=on) as whole:
+            with profiling.span('single.action_to_device', on=on):
+                # keep full precision until the env-dtype cast (a float32
+                # detour would break the float64 legacy bit-replay)
+                action = torch.as_tensor(
+                    np.asarray(action, np.float64)[:, None],
+                    dtype=self._dtype).to(self.device)
+            with profiling.span('graph.replay' if self._graph
+                                else 'single.eager_step', on=on):
+                start = profiling.event() if timed else None
+                step = self._graph or self._step
+                self._state, packed = step(self._state, action)
+                end = profiling.event() if timed else None
+            with profiling.span('single.obs_to_host', on=on):
+                packed = packed.cpu().numpy()
+            if timed:
+                whole.device(start, end)
         n = self._env.spec.obs_size
         obs, term, x = packed[:n], packed[n:2 * n], packed[2 * n:2 * n + 12]
         reward, done, spinning = packed[2 * n + 12:]

@@ -7,11 +7,13 @@ expert rollouts (control/heuristics.py)."""
 from __future__ import annotations
 
 import gc
+import time
 from typing import Callable
 
 import torch
 
 from gym_copter_tpu_torch.core.tree import tree_leaves, tree_map
+from gym_copter_tpu_torch.utils import profiling
 
 
 class Graph:
@@ -26,34 +28,44 @@ class Graph:
 
     A loop that replays the graph passes its outputs back as the next
     inputs and `inputs` for what does not change, so that nothing is
-    copied between replays."""
+    copied between replays.
 
-    def __init__(self, fn: Callable, warmup: int):
+    `name` (default: the function's) names the graph in the recorder of
+    utils/profiling.py, which keeps every capture's host seconds and its
+    nodes per region (`profiling.region`), and while it is on spans the
+    capture as `graph.capture`."""
+
+    def __init__(self, fn: Callable, warmup: int, name: str = None):
         self.fn, self.warmup = fn, warmup
+        self.name = name or getattr(fn, '__qualname__', 'graph')
         self.graph = None
 
     def _capture(self, inputs):
-        self.inputs = tree_map(torch.clone, inputs)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(self.warmup):
-                self.fn(*self.inputs)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # a CUDA graph freed while another is captured (an earlier Graph in
-        # a reference cycle, reached by the cyclic collector) invalidates
-        # the capture: collect before it, and not during it
-        gc.collect()
-        enabled = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph):
-                self.outputs = self.fn(*self.inputs)
-        finally:
-            if enabled:
-                gc.enable()
-        self.graph = graph
+        t0 = time.perf_counter_ns()
+        with profiling.span('graph.capture', self.name):
+            self.inputs = tree_map(torch.clone, inputs)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(self.warmup):
+                    self.fn(*self.inputs)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # a CUDA graph freed while another is captured (an earlier Graph
+            # in a reference cycle, reached by the cyclic collector)
+            # invalidates the capture: collect before it, and not during it
+            gc.collect()
+            enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph):
+                    with profiling.counting(self.name) as counts:
+                        self.outputs = self.fn(*self.inputs)
+            finally:
+                if enabled:
+                    gc.enable()
+            self.graph = graph
+        profiling.captured(counts, (time.perf_counter_ns() - t0) * 1e-9)
 
     def __call__(self, *inputs):
         if self.graph is None:

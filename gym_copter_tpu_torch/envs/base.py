@@ -21,6 +21,7 @@ from gym_copter_tpu_torch.core import constants as C
 from gym_copter_tpu_torch.core import dynamics, prng
 from gym_copter_tpu_torch.core.dynamics import DynamicsState
 from gym_copter_tpu_torch.core.types import EnvParams
+from gym_copter_tpu_torch.utils import profiling
 
 
 class TaskSpec(NamedTuple):
@@ -306,13 +307,19 @@ def _raw_step(state: EnvState, action, params: EnvParams, spec: TaskSpec):
 def step(state: EnvState, action, base_key, env_ids, params: EnvParams,
          spec: TaskSpec) -> Tuple[EnvState, TimeStep]:
     """Environment step with auto-reset: finished slots are replaced in
-    place by freshly reset episodes."""
+    place by freshly reset episodes.  Inside a `core/graph.Graph` capture
+    the recorder (utils/profiling.py) counts the nodes of its three
+    regions: the transition, the reset draw and the select."""
+    profiling.region('env.transition')
     new_state, obs, reward, done, spinning = _raw_step(state, action, params,
                                                        spec)
+    profiling.region('env.reset_draw')
     fresh_state, fresh_obs = reset(base_key, env_ids, state.episode + 1,
                                    params, spec, dtype=state.dyn.x.dtype)
+    profiling.region('env.select')
     out_state = tree_where(done, fresh_state, new_state)
     out_obs = torch.where(done, fresh_obs, obs)
+    profiling.region(None)
     ts = TimeStep(obs=out_obs, reward=reward, done=done,
                   status=new_state.dyn.status, spinning=spinning,
                   x=new_state.dyn.x)

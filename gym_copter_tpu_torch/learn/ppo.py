@@ -51,6 +51,7 @@ from gym_copter_tpu_torch.envs import base
 from gym_copter_tpu_torch.envs.base import EnvState, TaskSpec
 from gym_copter_tpu_torch.learn import optim
 from gym_copter_tpu_torch.parallel import sharding
+from gym_copter_tpu_torch.utils import profiling
 
 
 class PPOConfig(NamedTuple):
@@ -331,18 +332,23 @@ class TrainStep:
             raise ValueError(f'minibatch of {mb} transitions does not split '
                              f'into {self.world} equal shares')
         # the lambdas read the phase methods at capture time
-        self.rollout_graph = Graph(lambda *a: self.rollout(*a, 1), warmup=1)
-        self.gae_graph = Graph(lambda *a: self.advantages(*a), warmup=1)
-        self.update_graph = Graph(lambda *a: self.update(*a), warmup=3)
+        self.rollout_graph = Graph(lambda *a: self.rollout(*a, 1), warmup=1,
+                                   name='ppo.rollout_step')
+        self.gae_graph = Graph(lambda *a: self.advantages(*a), warmup=1,
+                               name='ppo.gae')
+        self.update_graph = Graph(lambda *a: self.update(*a), warmup=3,
+                                  name='ppo.update')
 
     # -- the three phases, as pure functions of tensors -------------------
 
     def rollout(self, leaves, env_state, obs, key, num_steps: int):
         """num_steps policy + env steps -> (env_state, obs, key, Transition
-        with a leading time axis)."""
+        with a leading time axis).  A capture counts the nodes of the
+        `ppo.policy` region and of the env step's (envs/base.py)."""
         cfg, traj = self.cfg, []
         with torch.no_grad():
             for _ in range(num_steps):
+                profiling.region('ppo.policy')
                 key, sub = prng.split(key)
                 mean, log_std, value = _policy(leaves, obs, cfg)
                 # this rank's columns of the global draw
@@ -468,7 +474,9 @@ class TrainStep:
         Every rank holds the whole flattened rollout and draws the same
         shuffle; it takes the gradient of its column share of each
         minibatch, and the shares' sums, all-reduced with the aux before
-        the guard reads approx_kl, give every rank the same step."""
+        the guard reads approx_kl, give every rank the same step.  A
+        capture counts the nodes of each minibatch's `ppo.loss_grad` and
+        `ppo.optimizer` regions."""
         cfg = self.cfg
         n = flat[0].shape[-1]
         block = cfg.shuffle_block if n % cfg.shuffle_block == 0 else 1
@@ -486,6 +494,7 @@ class TrainStep:
                         for x in flat]
             for i in range(cfg.minibatches):
                 batch = [x[..., i * mb:(i + 1) * mb] for x in shuffled]
+                profiling.region('ppo.loss_grad')
                 with torch.enable_grad():
                     req = [p.detach().requires_grad_() for p in leaves]
                     loss, mb_aux = self.loss(req, *batch, share=share)
@@ -493,6 +502,7 @@ class TrainStep:
                 mb_aux = mb_aux.detach()
                 if self.group is not None:
                     grads, mb_aux = self._all_reduce(grads, mb_aux)
+                profiling.region('ppo.optimizer')
                 updates, new_state = self.optimizer.update(grads, opt_state)
                 if cfg.target_kl > 0:
                     stop = stop | (mb_aux[3] > cfg.target_kl)
@@ -501,6 +511,7 @@ class TrainStep:
                     new_state = optim.tree_where(stop, opt_state, new_state)
                 opt_state = new_state
                 leaves = optim.apply_updates(leaves, updates)
+                profiling.region(None)
                 aux.append(mb_aux)
         return leaves, opt_state, key, torch.stack(aux).mean(0)
 
@@ -514,56 +525,62 @@ class TrainStep:
 
     def _graphed_rollout(self, leaves, env_state, obs, key):
         """The one-step rollout graph replayed T times into one
-        trajectory."""
+        trajectory: the span `ppo.rollout.host_loop` while the recorder is
+        on."""
         g, t_len = self.rollout_graph, self.cfg.rollout_steps
         traj = None
-        for t in range(t_len):
-            env_state, obs, key, one = g(leaves, env_state, obs, key)
-            leaves = g.inputs[0]
-            if traj is None:
-                traj = Transition(*(x.new_empty((t_len,) + x.shape[1:])
-                                    for x in one))
-            for buf, x in zip(traj, one):
-                buf[t].copy_(x[0])
+        with profiling.span('ppo.rollout.host_loop'):
+            for t in range(t_len):
+                env_state, obs, key, one = g(leaves, env_state, obs, key)
+                leaves = g.inputs[0]
+                if traj is None:
+                    traj = Transition(*(x.new_empty((t_len,) + x.shape[1:])
+                                        for x in one))
+                for buf, x in zip(traj, one):
+                    buf[t].copy_(x[0])
         return env_state, obs, key, traj
 
     def run(self, ts: TrainState, graphed: bool, marks=None):
         """One train step; `marks`, a list, receives a recorded CUDA event
-        before the rollout and after each phase (for timing on the card)."""
-        def mark():
-            if marks is not None:
-                marks.append(torch.cuda.Event(enable_timing=True))
-                marks[-1].record()
-
+        before the rollout and after each phase (for timing on the card).
+        While the recorder of utils/profiling.py is on, the step is the
+        span `ppo.step` and its phases `ppo.rollout`, `ppo.gae` and
+        `ppo.update`, timed on the card by the same events."""
         if graphed and self.group is not None and \
                 dist.get_backend(self.group) != 'nccl':
             raise ValueError('a CUDA graph cannot capture gloo collectives: '
                              'step a gloo world eagerly (step.eager)')
         if graphed and not ts.obs.is_cuda:
             raise ValueError('CUDA graphs need the train state on the card')
-        leaves = ts.params.leaves()
-        mark()
-        if graphed:
-            env_state, obs, key, traj = self._graphed_rollout(
-                leaves, ts.env_state, ts.obs, ts.key)
-        else:
-            env_state, obs, key, traj = self.rollout(
-                leaves, ts.env_state, ts.obs, ts.key, self.cfg.rollout_steps)
-        mark()
-        adv_fn = self.gae_graph if graphed else self.advantages
-        flat, stats = adv_fn(leaves, traj, obs)
-        mark()
-        upd_fn = self.update_graph if graphed else self.update
-        leaves, opt_state, key, aux = upd_fn(leaves, ts.opt_state, key, flat)
-        mark()
-        metrics = torch.cat([stats, aux.to(stats.dtype)])
-        if graphed:
-            # the graphs' static outputs are overwritten by the next replay
-            leaves, opt_state, env_state, obs, key = tree_map(
-                torch.clone, (leaves, opt_state, env_state, obs, key))
-        new_ts = TrainState(params=ActorCritic.from_leaves(leaves),
-                            opt_state=opt_state, env_state=env_state,
-                            obs=obs, key=key, update_idx=ts.update_idx + 1)
+        with profiling.Phases('ppo.step', marks,
+                              events=ts.obs.is_cuda) as phases:
+            leaves = ts.params.leaves()
+            phases.next('ppo.rollout')
+            if graphed:
+                env_state, obs, key, traj = self._graphed_rollout(
+                    leaves, ts.env_state, ts.obs, ts.key)
+            else:
+                env_state, obs, key, traj = self.rollout(
+                    leaves, ts.env_state, ts.obs, ts.key,
+                    self.cfg.rollout_steps)
+            phases.next('ppo.gae')
+            adv_fn = self.gae_graph if graphed else self.advantages
+            flat, stats = adv_fn(leaves, traj, obs)
+            phases.next('ppo.update')
+            upd_fn = self.update_graph if graphed else self.update
+            leaves, opt_state, key, aux = upd_fn(leaves, ts.opt_state, key,
+                                                 flat)
+            phases.next()
+            metrics = torch.cat([stats, aux.to(stats.dtype)])
+            if graphed:
+                # the graphs' static outputs are overwritten by the next
+                # replay
+                leaves, opt_state, env_state, obs, key = tree_map(
+                    torch.clone, (leaves, opt_state, env_state, obs, key))
+            new_ts = TrainState(params=ActorCritic.from_leaves(leaves),
+                                opt_state=opt_state, env_state=env_state,
+                                obs=obs, key=key,
+                                update_idx=ts.update_idx + 1)
         return new_ts, dict(zip(METRICS, metrics.unbind()))
 
 

@@ -41,6 +41,7 @@ from gym_copter_tpu_torch.core.types import EnvParams
 from gym_copter_tpu_torch.envs import base
 from gym_copter_tpu_torch.envs.base import EnvState, TaskSpec
 from gym_copter_tpu_torch.ops import _build
+from gym_copter_tpu_torch.utils import profiling
 
 LANES = 128
 # lanes per env the kernel is built for; the warp schedulers of an SM; and
@@ -528,13 +529,19 @@ def fused_rollout(state: EnvState, action, num_steps: int,
     (env_ids, episode, seed): pass the envs' global ids (default arange(B))
     and the same seed everywhere for layout-independent results.
     `initial_random_x` is not re-derived on auto-reset.  On the card the
-    state must be float32."""
-    arrays, u, c = _prepare(state, action, params, spec, env_ids)
-    if arrays[0].device.type == 'cpu':
-        outs = _rollout_plain(arrays, u, num_steps, seed, c, spec)
-    else:
-        outs = _rollout_cuda(arrays, u, num_steps, seed, c)
-    return _finish(state, outs)
+    state must be float32.  While the recorder of utils/profiling.py is
+    on, the call is the span `fused.rollout`, with `fused.prepare` and
+    `fused.launch` in it."""
+    on = profiling.recording()
+    with profiling.span('fused.rollout', on=on):
+        with profiling.span('fused.prepare', on=on):
+            arrays, u, c = _prepare(state, action, params, spec, env_ids)
+        with profiling.span('fused.launch', on=on):
+            if arrays[0].device.type == 'cpu':
+                outs = _rollout_plain(arrays, u, num_steps, seed, c, spec)
+            else:
+                outs = _rollout_cuda(arrays, u, num_steps, seed, c)
+        return _finish(state, outs)
 
 
 fused_rollout.launches = 0  # kernel launches, counted where they happen

@@ -20,6 +20,12 @@
 * `trace` wraps `torch.profiler` (CPU and, where there is a card, CUDA
   activity) and writes a Chrome trace; `device_busy` reads one: the
   device's busy share of the traced window and its kernels by device time.
+* The recorder, the program's own spans and counters (last section):
+  spans of the train step, the B = 1 step, the fused call and graph
+  captures on the `perf_counter_ns` clock, on while `spans()` is open or
+  `torch.profiler` records and off otherwise; and, always, the host
+  seconds and nodes per region of every `core/graph.Graph` capture.
+  `snapshot()` reads both back.
 
 The clock is a parameter, so that tests can drive the arithmetic with a
 fake one.
@@ -27,13 +33,19 @@ fake one.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import ctypes
+import itertools
 import json
 import os
 import statistics
 import subprocess
 import time
 from typing import Callable
+
+import torch
+import torch.autograd.profiler as _torch_profiler
 
 
 def synchronize() -> None:
@@ -332,3 +344,324 @@ def device_busy(trace_path: str, top: int = 10) -> dict:
     return {'window_us': window, 'busy_us': busy,
             'busy_share': busy / window, 'kernels': len(kernels),
             'top': [[name, t, n] for name, (t, n) in ranked]}
+
+
+# -- the recorder: the program's spans and counters -------------------------
+#
+# Off by default.  Off, a span site costs one check of the flags in
+# `recording()` per phase, call or step, and nothing else: no CUDA event,
+# no synchronize, no `record_function`, nothing added to a capture.  The
+# counters of `Graph` captures are always on; they read the capture's own
+# graph through libcuda and add no capture, node or synchronize.
+
+SPAN_BUFFER = 1 << 16     # finished spans kept; the oldest go first
+CAPTURE_BUFFER = 1 << 12  # Graph captures kept
+
+_depth = 0                # open `spans()` blocks
+_ids = itertools.count(1)
+_open = []                # the open spans, innermost last
+_finished = collections.deque(maxlen=SPAN_BUFFER)
+_captures = collections.deque(maxlen=CAPTURE_BUFFER)
+_counting = None          # the Capture of the Graph being captured, if any
+_anchor = None            # the Anchor of the recorder's device events
+_OFF = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether the recorder is on: inside `spans()`, or while
+    `torch.profiler` records (the profiler's own module flag)."""
+    return _depth > 0 or _torch_profiler._is_profiler_enabled
+
+
+@contextlib.contextmanager
+def spans():
+    """The recorder on for the block; `snapshot()` reads what it kept.
+
+        with profiling.spans():
+            ts, metrics = step(ts)
+        print(profiling.snapshot()['spans'])
+    """
+    global _depth
+    _depth += 1
+    try:
+        yield
+    finally:
+        _depth -= 1
+
+
+class Span:
+    """A named stretch of the host's work on the `perf_counter_ns` clock,
+    opened and closed by `with`: its parent is the span open around it,
+    its `unit` the id of its outermost span (one per train step, B = 1
+    step or fused call), its `label` an optional detail (a captured
+    graph's name), and `device(start, end)` gives it a device interval
+    between two of `event()`'s CUDA events.  While `torch.profiler`
+    records, it opens a `record_function` of its name, so that it sits on
+    the device trace's clock.  Made only on the recorder's path: `span`
+    checks that the recorder is on."""
+
+    __slots__ = ('name', 'label', 'id', 'parent', 'unit', 'start_ns',
+                 'end_ns', 'events', '_rf')
+
+    def __init__(self, name: str, label: str = None):
+        self.name, self.label = name, label
+        self.events = None
+        self._rf = None
+
+    def __enter__(self) -> 'Span':
+        parent = _open[-1] if _open else None
+        self.id = next(_ids)
+        self.parent = parent.id if parent is not None else None
+        self.unit = parent.unit if parent is not None else self.id
+        if _torch_profiler._is_profiler_enabled:
+            self._rf = _torch_profiler.record_function(self.name)
+            self._rf.__enter__()
+        _open.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = time.perf_counter_ns()
+        _open.pop()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
+        _finished.append(self)
+        return False
+
+    def device(self, start, end) -> None:
+        self.events = (start, end)
+
+
+def span(name: str, label: str = None, on: bool = None):
+    """A `Span` where the recorder is on, else a context that does
+    nothing.  `on`: `recording()` as the caller read it once for a step
+    or call of several spans."""
+    if on is None:
+        on = recording()
+    return Span(name, label) if on else _OFF
+
+
+class Anchor:
+    """The device clock placed on the host's: a CUDA event recorded right
+    after a synchronize, beside the `perf_counter_ns` read just after it.
+    A later event happened at `host_ns(event)` on the host clock."""
+
+    def __init__(self, event, at_ns: int):
+        self.event, self.at_ns = event, at_ns
+
+    @classmethod
+    def take(cls, clock: Callable[[], int] = time.perf_counter_ns,
+             make_event: Callable = None,
+             synchronize: Callable[[], None] = None) -> 'Anchor':
+        (synchronize or torch.cuda.synchronize)()
+        event = (make_event or _timing_event)()
+        event.record()
+        return cls(event, clock())
+
+    def host_ns(self, event) -> int:
+        return self.at_ns + round(self.event.elapsed_time(event) * 1e6)
+
+
+def _timing_event():
+    return torch.cuda.Event(enable_timing=True)
+
+
+def event(anchored: bool = True):
+    """A CUDA timing event recorded now on the current stream, for a span's
+    device interval.  The recorder's first anchored one takes the anchor
+    first, which synchronizes."""
+    global _anchor
+    if anchored and _anchor is None:
+        _anchor = Anchor.take()
+    e = _timing_event()
+    e.record()
+    return e
+
+
+class Phases:
+    """Consecutive phases of one unit of work, as a `with` block: each
+    `next(name)` records a CUDA event where events are wanted, ends the
+    phase before at it and starts `name` at it (None starts none).
+    `marks`, a list or None, receives every event in order.  While the
+    recorder is on, the unit and its phases are spans, timed on the card
+    (`events`) by those events; off and without `marks`, it does
+    nothing."""
+
+    def __init__(self, name: str, marks=None, events: bool = False):
+        self.on = recording()
+        self.marks = marks
+        self.timed = marks is not None or (self.on and events)
+        self.root = Span(name) if self.on else None
+        self.phase = self.start = None
+
+    def __enter__(self) -> 'Phases':
+        if self.root is not None:
+            self.root.__enter__()
+        return self
+
+    def next(self, name: str = None) -> None:
+        e = event(anchored=self.on) if self.timed else None
+        if self.marks is not None:
+            self.marks.append(e)
+        if self.phase is not None:
+            if e is not None:
+                self.phase.device(self.start, e)
+            self.phase.__exit__(None, None, None)
+            self.phase = None
+        if self.on and name is not None:
+            self.phase = Span(name).__enter__()
+        self.start = e
+
+    def __exit__(self, *exc) -> bool:
+        for s in (self.phase, self.root):
+            if s is not None:
+                s.__exit__(*exc)
+        self.phase = self.root = None
+        return False
+
+
+class _LibCuda:
+    """The two `libcuda` calls that count a capture's nodes, over
+    ctypes."""
+
+    def __init__(self):
+        cu = ctypes.CDLL('libcuda.so.1')
+        self.info = cu.cuStreamGetCaptureInfo_v2
+        ptr = ctypes.POINTER(ctypes.c_void_p)
+        # stream, status, capture id, graph, dependencies, number of
+        # dependencies
+        self.info.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                              ctypes.POINTER(ctypes.c_ulonglong), ptr, ptr,
+                              ctypes.POINTER(ctypes.c_size_t)]
+        self.info.restype = ctypes.c_int
+        self.nodes = cu.cuGraphGetNodes
+        self.nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.POINTER(ctypes.c_size_t)]
+        self.nodes.restype = ctypes.c_int
+
+
+_libcuda = None
+
+
+def capture_nodes():
+    """Nodes so far of the graph that the current CUDA stream captures
+    into (`cuStreamGetCaptureInfo`, then `cuGraphGetNodes`, which CUDA
+    permits during a capture), or None where the stream is not capturing
+    or libcuda will not say."""
+    global _libcuda
+    if _libcuda is None:
+        try:
+            _libcuda = _LibCuda()
+        except (OSError, AttributeError):
+            _libcuda = False
+    if not _libcuda:
+        return None
+    status, ident = ctypes.c_int(), ctypes.c_ulonglong()
+    graph, deps = ctypes.c_void_p(), ctypes.c_void_p()
+    ndeps = ctypes.c_size_t()
+    if _libcuda.info(torch.cuda.current_stream().cuda_stream,
+                     ctypes.byref(status), ctypes.byref(ident),
+                     ctypes.byref(graph), ctypes.byref(deps),
+                     ctypes.byref(ndeps)) != 0 \
+            or status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        return None
+    n = ctypes.c_size_t()
+    if _libcuda.nodes(graph, None, ctypes.byref(n)) != 0:
+        return None
+    return n.value
+
+
+class Capture:
+    """What the recorder keeps of one `core/graph.Graph` capture: the
+    graph's name, the host seconds of `Graph._capture`, the captured
+    graph's nodes, and the nodes added inside each region (`region`),
+    summed over the region's occurrences.  `counted` is False where the
+    capture's nodes could not be read."""
+
+    __slots__ = ('graph', 'seconds', 'nodes', 'regions', 'counted',
+                 '_region', '_at', '_count')
+
+    def __init__(self, graph: str, count: Callable[[], int] = None):
+        self.graph, self.seconds, self.nodes = graph, None, None
+        self.regions, self.counted = {}, True
+        self._region = self._at = None
+        self._count = count
+
+    def boundary(self, name) -> None:
+        n = (self._count or capture_nodes)()
+        if n is None:
+            self.counted = False
+            return
+        if self._region is not None:
+            self.regions[self._region] = (self.regions.get(self._region, 0)
+                                          + n - self._at)
+        self._region, self._at = name, n
+
+    def end(self) -> None:
+        self.boundary(None)
+        self.nodes = self._at if self.counted else None
+
+
+@contextlib.contextmanager
+def counting(graph: str, count: Callable[[], int] = None):
+    """Count, inside `torch.cuda.graph(...)`, the nodes that the block
+    adds to the graph being captured, per region: yields the `Capture`,
+    which holds the graph's nodes once the block has returned.  `count`
+    stands in for `capture_nodes` in tests."""
+    global _counting
+    rec = Capture(graph, count)
+    _counting = rec
+    try:
+        rec.boundary(None)
+        yield rec
+        rec.end()
+    finally:
+        _counting = None
+
+
+def captured(rec: Capture, seconds: float) -> None:
+    """Keep a finished capture with its host seconds."""
+    rec.seconds = seconds
+    _captures.append(rec)
+
+
+def region(name) -> None:
+    """A boundary between regions of a function that `core/graph.Graph`
+    captures: the nodes added from here to the next boundary count to
+    `name` (None: to no region).  Outside such a capture it does nothing
+    but check a module-level flag; captures made elsewhere are not
+    counted."""
+    if _counting is not None:
+        _counting.boundary(name)
+
+
+def snapshot() -> dict:
+    """What the recorder holds: {'spans': [...], 'captures': [...]}.  A
+    span is {'id', 'parent', 'unit', 'name', 'label', 'start_ns',
+    'end_ns'}, and where it has a device interval 'device_start_ns' and
+    'device_end_ns' on the host clock (through the anchor) and
+    'device_ns'; it waits for those events.  A capture is {'graph',
+    'seconds', 'nodes', 'regions', 'counted'}."""
+    out = []
+    for s in list(_finished):
+        d = {'id': s.id, 'parent': s.parent, 'unit': s.unit,
+             'name': s.name, 'label': s.label, 'start_ns': s.start_ns,
+             'end_ns': s.end_ns}
+        if s.events is not None:
+            start, end = s.events
+            end.synchronize()
+            d['device_start_ns'] = _anchor.host_ns(start)
+            d['device_end_ns'] = _anchor.host_ns(end)
+            d['device_ns'] = round(start.elapsed_time(end) * 1e6)
+        out.append(d)
+    return {'spans': out,
+            'captures': [{'graph': c.graph, 'seconds': c.seconds,
+                          'nodes': c.nodes, 'regions': dict(c.regions),
+                          'counted': c.counted} for c in _captures]}
+
+
+def clear() -> None:
+    """Forget every span and capture kept so far."""
+    _finished.clear()
+    _captures.clear()
