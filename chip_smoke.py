@@ -30,7 +30,9 @@ Phases, each printed before the last line:
      updates at the recorded recipe; 3 graphed train steps held bit for bit
      against the eager steps from the same state; the recipe's
      learning-rate schedule and train()'s default one on the card held bit
-     for bit against the CPU's at every count, eagerly and graphed; one
+     for bit against the CPU's at every count, eagerly and graphed; the
+     optimizer's kernel (ops/csrc/clip_adam.cu) held bit for bit against
+     its plain version on the cases of tests/torch_cuda_cases.py; one
      small float32 step on the card against the CPU; device ms per phase
      (rollout, GAE, update), eager and graphed, and env-steps/s of
      training, with the card's SM clock, power draw, temperature and
@@ -733,6 +735,7 @@ def ppo_phase():
 
     # 1. the user's entry point, launch counts set to 0 just before
     fr.fused_rollout.launches = 0
+    optim.step_kernel.launches = 0
     evals = []
     t0 = time.perf_counter()
     ts, _ = ppo.train('Lander3D-v0', num_envs=MAIN_B,
@@ -740,7 +743,8 @@ def ppo_phase():
                          callback=lambda i, m: evals.append((i, m)))
     torch.cuda.synchronize()
     out['train_s'] = time.perf_counter() - t0
-    out['launches'] = {'fused_rollout': fr.fused_rollout.launches}
+    out['launches'] = {'fused_rollout': fr.fused_rollout.launches,
+                       'clip_adam': optim.step_kernel.launches}
     if int(ts.update_idx) != PPO_STEPS or [i for i, _ in evals] != [0, 2]:
         raise AssertionError('train() did not take its steps')
     for i, m in evals:
@@ -752,7 +756,8 @@ def ppo_phase():
         f'evaluated at 0 and 2): {out["train_s"]:.1f} s with the graphs\' '
         f'capture; eval_return {[round(m["eval_return"], 2) for _, m in evals]}'
         f'; launches {out["launches"]} (PPO rolls out with the per-step '
-        f'env under a policy)')
+        f'env under a policy; clip_adam counts the update graph\'s warm-ups '
+        f'and capture, 4 x 64, not its replays)')
 
     # 2. graphed train steps against the eager ones from the same state
     env = gct.make('Lander3D-v0', num_envs=MAIN_B)
@@ -810,6 +815,20 @@ def ppo_phase():
             raise AssertionError(f'the {name} schedule on the card differs '
                                  f'from the CPU\'s at {eager} counts '
                                  f'eagerly, {graphed} graphed')
+
+    # 2c. the optimizer's kernel against its plain version on the card
+    bad, n, launches = cases.clip_adam_mismatches(env.device)
+    out['clip_adam_mismatches'] = {'bad': bad, 'cases': n,
+                                   'launches': launches}
+    log(f'[ppo] the optimizer\'s kernel (ops/csrc/clip_adam.cu) against its '
+        f'plain version on the card, {n} cases (Lander3D and Hover3D leaf '
+        f'shapes, float32 and float64, clip on and off, no guard / go / '
+        f'stop, counts near 1, near 38,400 and saturated, constant rate and '
+        f'schedule), eagerly and replayed in a graph: {len(bad)} differ in '
+        f'any bit')
+    if bad:
+        raise AssertionError(f'the clip_adam kernel differs from its plain '
+                             f'version: {bad[:5]}')
 
     # 3. one small float32 step on the card against the same on the CPU
     small = ppo.PPOConfig(rollout_steps=8, hidden=16, minibatches=2,

@@ -503,14 +503,11 @@ class TrainStep:
                 if self.group is not None:
                     grads, mb_aux = self._all_reduce(grads, mb_aux)
                 profiling.region('ppo.optimizer')
-                updates, new_state = self.optimizer.update(grads, opt_state)
                 if cfg.target_kl > 0:
                     stop = stop | (mb_aux[3] > cfg.target_kl)
-                    updates = [torch.where(stop, torch.zeros_like(u), u)
-                               for u in updates]
-                    new_state = optim.tree_where(stop, opt_state, new_state)
-                opt_state = new_state
-                leaves = optim.apply_updates(leaves, updates)
+                leaves, opt_state = self.optimizer.step(
+                    leaves, grads, opt_state,
+                    stop if cfg.target_kl > 0 else None)
                 profiling.region(None)
                 aux.append(mb_aux)
         return leaves, opt_state, key, torch.stack(aux).mean(0)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.
 
 Every test here is marked `cuda` and skips where there is no CUDA device.
 The file imports nothing of JAX, so it also runs on a machine without it;
@@ -10,9 +11,11 @@ The cases, shared with `chip_smoke.py`, are in tests/torch_cuda_cases.py:
 every task kind, with and without random resets, Lander3D at 4096 envs,
 and batches that are not a multiple of 128 or of 8, each at every
 lanes-per-env choice (1, 4).  Kernel and plain version must agree bit
-for bit in every field.  The PPO, sharding, checkpoint, profiling,
-evolution, adaptive and expert tests after them hold the graphed paths
-against their eager, one-rank or CPU counterparts on the card.
+for bit in every field; so must the optimizer's kernel
+(ops/csrc/clip_adam.cu) and its plain version.  The PPO, sharding,
+checkpoint, profiling, evolution, adaptive and expert tests after them
+hold the graphed paths against their eager, one-rank or CPU counterparts
+on the card.
 """
 
 import pytest
@@ -28,10 +31,11 @@ from gym_copter_tpu_torch.core import prng
 from gym_copter_tpu_torch.core.tree import tree_map
 from gym_copter_tpu_torch.learn import ppo
 from torch_cuda_cases import (FIXTURE, FLOOR_SCHEDULE, RECIPE_SCHEDULE,
-                              compare, fixture_mismatches, fixture_record,
-                              fixture_template, reset_state, run_kernel,
-                              scenarios, schedule_mismatches, state_diff,
-                              state_tensors, train_state_to)
+                              clip_adam_case, clip_adam_mismatches, compare,
+                              fixture_mismatches, fixture_record,
+                              fixture_template, ppo_leaf_shapes, reset_state,
+                              run_kernel, scenarios, schedule_mismatches,
+                              state_diff, state_tensors, train_state_to)
 
 SCENARIOS = scenarios()
 _plain = {}
@@ -245,6 +249,84 @@ def test_schedule_on_the_card_equals_the_cpu(schedule, counts):
     graph."""
     eager, graphed, n = schedule_mismatches(_card(), schedule)
     assert (n, eager, graphed) == (counts, 0, 0)
+
+
+@pytest.mark.cuda
+def test_clip_adam_kernel_matches_plain():
+    """The optimizer's kernel (ClipAdam.step on the card) against its plain
+    version on the card, bit for bit in every parameter, moment and count:
+    Lander3D's and Hover3D's leaf shapes, float32 and float64, the norm
+    over and under the limit, no guard / not stopped / stopped, counts
+    near 1, near 38,400 and saturated, constant rate and the recipe's
+    schedule; eagerly and replayed in a captured graph."""
+    bad, cases, launches = clip_adam_mismatches(_card())
+    assert bad == []
+    # per case: the eager call, the graph's warm-up and its capture
+    assert (cases, launches) == (144, 3 * 144)
+
+
+@pytest.mark.cuda
+def test_clip_adam_wrapper_refuses_what_the_kernel_does_not_take():
+    """A non-contiguous leaf, or leaves on different devices, raise before
+    any launch."""
+    from gym_copter_tpu_torch.learn import optim
+
+    device = _card()
+    opt, params, grads, state, stop = clip_adam_case(
+        ppo_leaf_shapes(10, hidden=16), torch.float32, device, clip=True,
+        stop=False, count=0, schedule=False)
+    launches = optim.step_kernel.launches
+    strided = list(grads)
+    strided[0] = grads[0].t().contiguous().t()
+    with pytest.raises(ValueError, match='contiguous'):
+        opt.step(params, strided, state, stop)
+    on_cpu = list(grads)
+    on_cpu[2] = grads[2].cpu()
+    with pytest.raises(ValueError, match='is on cpu'):
+        opt.step(params, on_cpu, state, stop)
+    with pytest.raises(ValueError, match='is on cpu'):
+        opt.step(params, grads, state._replace(count=state.count.cpu()),
+                 stop)
+    with pytest.raises(ValueError, match='float64'):
+        opt.step(params, grads, state._replace(
+            mu=[m.double() for m in state.mu]), stop)
+    assert optim.step_kernel.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('schedule', [False, True],
+                         ids=['constant', 'recipe_schedule'])
+def test_optimizer_region_is_a_few_nodes_per_minibatch(schedule):
+    """The update graph's `ppo.optimizer` regions hold at most 40 nodes
+    per minibatch: the sums of squares, the count's bias corrections, the
+    rate (the recipe's schedule, annealed to 0), the target-KL flag and
+    one launch."""
+    from gym_copter_tpu_torch.learn import optim
+    from gym_copter_tpu_torch.utils import profiling
+
+    device = _card()
+    cfg = ppo.PPOConfig(rollout_steps=16, hidden=16, minibatches=4,
+                        epochs=2, target_kl=0.015, anneal_lr_floor=0.0)
+    env = gt.make('Lander3D-v0', num_envs=256, device=device)
+    opt = ppo.train_optimizer(ppo.resolve_minibatches(cfg, 256), 10) \
+        if schedule else None
+    step, opt = ppo.make_train_step(env.params, env.spec, cfg,
+                                    prng.PRNGKey(1, device), env.env_ids,
+                                    optimizer=opt)
+    assert callable(opt.learning_rate) == schedule
+    ts = ppo.init_train_state(prng.PRNGKey(0, device), env.params, env.spec,
+                              cfg, 256, opt)
+    profiling.clear()
+    launches = optim.step_kernel.launches
+    step(ts)
+    update = [c for c in profiling.snapshot()['captures']
+              if c['graph'] == 'ppo.update'][-1]
+    profiling.clear()
+    minibatches = cfg.epochs * cfg.minibatches
+    # the graph's 3 warm-ups and its capture
+    assert optim.step_kernel.launches == launches + 4 * minibatches
+    assert update['counted']
+    assert update['regions']['ppo.optimizer'] <= 40 * minibatches
 
 
 @pytest.mark.cuda

@@ -245,6 +245,36 @@ def test_optimizer_matches_optax(max_norm, schedule):
     assert bool(clipped) == (max_norm < 1)
 
 
+@pytest.mark.parametrize('stop', [None, False, True],
+                         ids=['no_guard', 'go', 'stop'])
+@pytest.mark.parametrize('clip', [True, False], ids=['clip', 'no_clip'])
+@pytest.mark.parametrize('schedule', [False, True],
+                         ids=['constant', 'schedule'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64],
+                         ids=['f32', 'f64'])
+def test_clip_adam_step_equals_the_former_sequence(dtype, schedule, clip,
+                                                   stop):
+    """ClipAdam.step on the CPU equals, bit for bit, the sequence the PPO
+    update ran before it (update, the stop select, tree_where,
+    apply_updates): params, moments and counts, a -0.0 param included."""
+    from torch_cuda_cases import clip_adam_case, ppo_leaf_shapes, \
+        step_mismatches
+
+    opt, params, grads, state, flag = clip_adam_case(
+        ppo_leaf_shapes(10, hidden=16), dtype, CPU, clip=clip, stop=stop,
+        count=38_399, schedule=schedule)
+    updates, new_state = opt.update(grads, state)
+    if flag is not None:
+        updates = [torch.where(flag, torch.zeros_like(u), u)
+                   for u in updates]
+        new_state = optim.tree_where(flag, state, new_state)
+    want = optim.apply_updates(params, updates), new_state
+    got = opt.step(params, grads, state, flag)
+    assert step_mismatches(got, want) == []
+    # -0.0 + -0.0 where the step goes, -0.0 + 0 where it stops
+    assert bool(torch.signbit(got[0][0].view(-1)[0])) == (stop is not True)
+
+
 def _one_update(target_kl, spec_name='HOVER_3D', dtype=np.float64):
     """One train_step from the same JAX init on both sides (the
     `_one_update_params` configuration of tests/test_ppo.py)."""

@@ -10,6 +10,11 @@ Each case is every task kind with and without random resets, Lander3D at
 The learning-rate schedules of the PPO recipe and of `train()`'s default
 floor are held against the CPU's at every count (`schedule_mismatches`).
 
+The optimizer's kernel (ops/csrc/clip_adam.cu, `ClipAdam.step` on the
+card) is held against its plain version on the card at Lander3D's and
+Hover3D's leaf shapes (`clip_adam_cases`, `clip_adam_mismatches`); the
+CPU test of `step` builds its inputs with `clip_adam_case` too.
+
 The JAX package's orbax checkpoint of the PPO recipe after one update
 (tests/data/jax_orbax_lander3d/, made by tests/make_jax_orbax_fixture.py)
 and its record are read here too (`FIXTURE`, `fixture_record`,
@@ -309,6 +314,142 @@ def schedule_mismatches(device, schedule=RECIPE_SCHEDULE):
     graphed = graphed.cpu().view(torch.int32)
     return (int((eager != want).sum()), int((graphed != want).sum()),
             steps + 2)
+
+
+def ppo_leaf_shapes(obs_size, hidden=128, action_size=4):
+    """The PPO params' leaf shapes, in `ActorCritic.leaves()` order."""
+    from gym_copter_tpu_torch.core import prng
+    from gym_copter_tpu_torch.learn import ppo
+
+    params = ppo.init_params(prng.PRNGKey(0, 'cpu'), obs_size, action_size,
+                             ppo.PPOConfig(hidden=hidden))
+    return [tuple(t.shape) for t in params.leaves()]
+
+
+def clip_adam_case(shapes, dtype, device, *, clip, stop, count, schedule,
+                   seed=0):
+    """(optimizer, params, grads, state, stop) for `ClipAdam.step`:
+    max_grad_norm 0.5 and the gradients' global norm 4 times it (`clip`)
+    or a quarter of it; random moments; a -0.0 parameter with a zero
+    gradient and zero moments, and one with a nonzero gradient; both counts
+    at `count` under the recipe's schedule (`schedule`), the Adam count
+    alone under a constant 3e-4; stop None (no guard), False or True."""
+    from gym_copter_tpu_torch.learn import optim
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(shape, scale=1.0):
+        return torch.randn(shape, generator=gen,
+                           dtype=torch.float64) * scale
+
+    grads = [rand(s) for s in shapes]
+    norm = float(sum((g * g).sum() for g in grads).sqrt())
+    grads = [(g * ((2.0 if clip else 0.125) / norm)).to(dtype)
+             for g in grads]
+    params = [rand(s).to(dtype) for s in shapes]
+    mu = [rand(s, 1e-2).to(dtype) for s in shapes]
+    nu = [rand(s, 1e-2).abs().to(dtype) for s in shapes]
+    for t, v in ((params[0], -0.0), (grads[0], 0.0), (mu[0], 0.0),
+                 (nu[0], 0.0), (params[1], -0.0)):
+        t.view(-1)[0] = v
+    lr = optim.linear_schedule(*RECIPE_SCHEDULE) if schedule else 3e-4
+    opt = optim.ClipAdam(0.5, lr)
+    state = optim.AdamState(
+        count=torch.tensor(count, dtype=torch.int32), mu=mu, nu=nu,
+        schedule_count=torch.tensor(count if schedule else 0,
+                                    dtype=torch.int32))
+    if stop is not None:
+        stop = torch.tensor(stop)
+    params, grads, state, stop = (
+        tree_to(x, device) for x in (params, grads, state, stop))
+    return opt, params, grads, state, stop
+
+
+def tree_to(tree, device):
+    from gym_copter_tpu_torch.core.tree import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def same_bits(a, b) -> bool:
+    """a and b hold the same bits (so -0.0 differs from 0.0)."""
+    def bits(t):
+        if t.dtype in (torch.float32, torch.float64):
+            return t.view(torch.int32 if t.dtype == torch.float32
+                          else torch.int64)
+        return t
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        bits(a), bits(b))
+
+
+def step_mismatches(got, want):
+    """The names of the outputs of `ClipAdam.step`, (params, state), in
+    which `got` and `want` differ in any bit."""
+    (gp, gs), (wp, ws) = got, want
+    pairs = ([(f'param {i}', a, b) for i, (a, b) in enumerate(zip(gp, wp))]
+             + [(f'mu {i}', a, b) for i, (a, b) in enumerate(zip(gs.mu,
+                                                                 ws.mu))]
+             + [(f'nu {i}', a, b) for i, (a, b) in enumerate(zip(gs.nu,
+                                                                 ws.nu))]
+             + [('count', gs.count, ws.count),
+                ('schedule_count', gs.schedule_count, ws.schedule_count)])
+    return [name for name, a, b in pairs if not same_bits(a, b)]
+
+
+def clip_adam_cases():
+    """(name, obs_size, dtype, clip, stop, count, schedule) for every
+    combination the card test runs: Lander3D's (10) and Hover3D's (12)
+    observations at hidden 128, float32 and float64, the norm over and
+    under the limit, no guard / not stopped / stopped, counts 0 and 38,399
+    (the step makes them 1 and 38,400, the recipe's last) and the int32
+    maximum (saturated), a constant rate and the recipe's schedule."""
+    out = []
+    for task, obs in (('lander3d', 10), ('hover3d', 12)):
+        for dtype in (torch.float32, torch.float64):
+            for clip in (True, False):
+                for stop in (None, False, True):
+                    for count in (0, 38_399, 2 ** 31 - 1):
+                        for schedule in (False, True):
+                            out.append((
+                                f'{task} {str(dtype)[6:]} clip={clip} '
+                                f'stop={stop} count={count} '
+                                f'schedule={schedule}',
+                                obs, dtype, clip, stop, count, schedule))
+    return out
+
+
+def clip_adam_mismatches(device):
+    """Every case of `clip_adam_cases` on `device`: `ClipAdam.step` (the
+    kernel) eagerly, and replayed twice in a captured `core/graph.Graph`,
+    against `step_reference` on the card.  Returns ([(case, 'eager' or
+    'graphed', outputs that differ)], the number of cases, the kernel's
+    launches)."""
+    from gym_copter_tpu_torch.core.graph import Graph
+    from gym_copter_tpu_torch.learn import optim
+
+    bad, shapes = [], {}
+    launches = optim.step_kernel.launches
+    cases = clip_adam_cases()
+    for name, obs, dtype, clip, stop, count, schedule in cases:
+        if obs not in shapes:
+            shapes[obs] = ppo_leaf_shapes(obs)
+        opt, params, grads, state, stop = clip_adam_case(
+            shapes[obs], dtype, device, clip=clip, stop=stop, count=count,
+            schedule=schedule)
+        want = opt.step_reference(params, grads, state, stop)
+        got = opt.step(params, grads, state, stop)
+        diff = step_mismatches(got, want)
+        if diff:
+            bad.append((name, 'eager', diff))
+        graph = Graph(lambda p, g, s: opt.step(p, g, s, stop), warmup=1,
+                      name='clip_adam')
+        for _ in range(2):
+            diff = step_mismatches(graph(params, grads, state), want)
+            if diff:
+                bad.append((name, 'graphed', diff))
+    torch.cuda.synchronize()
+    return bad, len(cases), optim.step_kernel.launches - launches
 
 
 FIXTURE = Path(__file__).resolve().parent / 'data' / 'jax_orbax_lander3d'
