@@ -32,7 +32,8 @@ Phases, each printed before the last line:
      learning-rate schedule and train()'s default one on the card held bit
      for bit against the CPU's at every count, eagerly and graphed; the
      optimizer's kernel (ops/csrc/clip_adam.cu) held bit for bit against
-     its plain version on the cases of tests/torch_cuda_cases.py; one
+     its plain version on the cases of tests/torch_cuda_cases.py, and so
+     is the env step's (ops/csrc/env_step.cu) for every registry id; one
      small float32 step on the card against the CPU; device ms per phase
      (rollout, GAE, update), eager and graphed, and env-steps/s of
      training, with the card's SM clock, power draw, temperature and
@@ -726,6 +727,7 @@ def ppo_phase():
     import gym_copter_tpu_torch as gct
     from gym_copter_tpu_torch.core import prng
     from gym_copter_tpu_torch.core.tree import tree_map
+    from gym_copter_tpu_torch.envs import base
     from gym_copter_tpu_torch.learn import optim, ppo
     from gym_copter_tpu_torch.ops import fused_rollout as fr
 
@@ -736,6 +738,7 @@ def ppo_phase():
     # 1. the user's entry point, launch counts set to 0 just before
     fr.fused_rollout.launches = 0
     optim.step_kernel.launches = 0
+    base.step_kernel.launches = 0
     evals = []
     t0 = time.perf_counter()
     ts, _ = ppo.train('Lander3D-v0', num_envs=MAIN_B,
@@ -744,7 +747,8 @@ def ppo_phase():
     torch.cuda.synchronize()
     out['train_s'] = time.perf_counter() - t0
     out['launches'] = {'fused_rollout': fr.fused_rollout.launches,
-                       'clip_adam': optim.step_kernel.launches}
+                       'clip_adam': optim.step_kernel.launches,
+                       'env_step': base.step_kernel.launches}
     if int(ts.update_idx) != PPO_STEPS or [i for i, _ in evals] != [0, 2]:
         raise AssertionError('train() did not take its steps')
     for i, m in evals:
@@ -757,7 +761,9 @@ def ppo_phase():
         f'capture; eval_return {[round(m["eval_return"], 2) for _, m in evals]}'
         f'; launches {out["launches"]} (PPO rolls out with the per-step '
         f'env under a policy; clip_adam counts the update graph\'s warm-ups '
-        f'and capture, 4 x 64, not its replays)')
+        f'and capture, 4 x 64, not its replays; env_step the rollout '
+        f'graph\'s warm-up and capture and the evaluation\'s, not their '
+        f'replays)')
 
     # 2. graphed train steps against the eager ones from the same state
     env = gct.make('Lander3D-v0', num_envs=MAIN_B)
@@ -828,6 +834,31 @@ def ppo_phase():
         f'any bit')
     if bad:
         raise AssertionError(f'the clip_adam kernel differs from its plain '
+                             f'version: {bad[:5]}')
+
+    # 2d. the env step's kernel against its plain version on the card
+    bad, runs = [], 0
+    launches = base.step_kernel.launches
+    for what, name, dtype, b, regime in cases.env_step_cases():
+        if b != 4099 or regime != 'ends':
+            continue
+        for graphed in (False, True):
+            diff, _, ended, _ = cases.env_step_mismatches(
+                name, dtype, b, regime, env.device, graphed=graphed)
+            runs += 1
+            if diff or not ended:
+                bad.append((what, graphed, diff[:3], ended))
+    out['env_step_mismatches'] = {'bad': bad, 'runs': runs,
+                                  'launches': base.step_kernel.launches
+                                  - launches}
+    log(f'[ppo] the env step\'s kernel (ops/csrc/env_step.cu) against its '
+        f'plain version on the card: every registry id, float32 and '
+        f'float64, 4099 envs, 16 steps that end every episode, eagerly and '
+        f'replayed in a graph ({runs} runs, '
+        f'{out["env_step_mismatches"]["launches"]} launches): {len(bad)} '
+        f'differ in any field')
+    if bad:
+        raise AssertionError(f'the env step kernel differs from its plain '
                              f'version: {bad[:5]}')
 
     # 3. one small float32 step on the card against the same on the CPU

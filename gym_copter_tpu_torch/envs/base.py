@@ -7,10 +7,16 @@ masked auto-reset inside the step.  Each env's reset randomness is keyed by
 `fold_in(fold_in(base_key, global_env_id), episode)` with the port's
 threefry (core/prng.py), so the kicks are the JAX package's bits and do
 not depend on batch size or layout.
+
+`step` on CPU tensors is the plain version, `step_reference`; on the card
+it is one launch of ops/csrc/env_step.cu (`step_kernel`), bit for bit equal
+to the plain version there: one graph node where the plain version has
+~770.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple, Optional, Tuple
@@ -309,7 +315,19 @@ def step(state: EnvState, action, base_key, env_ids, params: EnvParams,
     """Environment step with auto-reset: finished slots are replaced in
     place by freshly reset episodes.  Inside a `core/graph.Graph` capture
     the recorder (utils/profiling.py) counts the nodes of its three
-    regions: the transition, the reset draw and the select."""
+    regions: the transition, the reset draw and the select.  The plain
+    version (`step_reference`) on CPU tensors, one launch of the kernel on
+    CUDA tensors (`step_kernel`)."""
+    if state.dyn.x.is_cuda:
+        return step_kernel(state, action, base_key, env_ids, params, spec)
+    return step_reference(state, action, base_key, env_ids, params, spec)
+
+
+def step_reference(state: EnvState, action, base_key, env_ids,
+                   params: EnvParams,
+                   spec: TaskSpec) -> Tuple[EnvState, TimeStep]:
+    """`step` as torch operations: `_raw_step`, a `reset` of every env,
+    and the select."""
     profiling.region('env.transition')
     new_state, obs, reward, done, spinning = _raw_step(state, action, params,
                                                        spec)
@@ -324,3 +342,288 @@ def step(state: EnvState, action, base_key, env_ids, params: EnvParams,
                   status=new_state.dyn.status, spinning=spinning,
                   x=new_state.dyn.x)
     return out_state, ts
+
+
+# The kernel's instantiations (ops/csrc/env_step.cu), in its order: element
+# types, task kinds and terminations.  The lift model is a run-time flag.
+KERNEL_DTYPES = (torch.float32, torch.float64)
+KERNEL_KINDS = ('lander', 'lander_simple', 'hover', 'althold', 'takeoff',
+                'distance', 'target')
+KERNEL_TERMINATIONS = ('standard', 'simple', 'crash_only', 'none')
+KERNEL_LIFT_MODELS = ('bouabdallah', 'blade_element')
+_OBS_FIELDS = tuple(f'obs{k}' for k in range(C.STATE_SIZE))
+
+
+class KernelConstants(NamedTuple):
+    """What the kernel's step needs besides the tensors, as Python numbers;
+    the kernel rounds each float to the element type where it uses it, as
+    torch rounds a Python scalar.  It receives the floats (as doubles) and
+    the ints as two arrays in field order (`csrc/env_step.cu`, struct
+    Consts)."""
+
+    maxrpm: float
+    half_l: float
+    lift_k: float
+    thrust_b: float
+    lb: float
+    drag_d: float
+    mass: float
+    ix: float
+    iy: float
+    iz: float
+    iy_iz: float
+    iz_ix: float
+    ix_iy: float
+    jr_ix: float
+    jr_iy: float
+    g: float
+    dt: float
+    landing_vel_x: float
+    landing_vel_y: float
+    landing_angle: float
+    xyz_pen: float
+    yaw_pen: float
+    pr_pen: float
+    dz_max: float
+    dz_penalty: float
+    target_radius: float
+    target_radius_sq: float
+    bonus: float
+    althold_target: float
+    althold_tol: float
+    takeoff_target: float
+    bounds: float
+    max_angle: float
+    oob_penalty: float
+    force: float
+    pose_x: float
+    pose_y: float
+    pose_z: float
+    pose_phi: float
+    pose_theta: float
+    dtheta: float
+    orbit_radius: float
+    target_alt: float
+    # ints from here on
+    max_steps: int
+    blade: int
+    skip_when_landed: int
+    perturb_on_reset: int
+    integrate_on_reset: int
+    negate_obs: int
+    n_obs: int
+    obs0: int
+    obs1: int
+    obs2: int
+    obs3: int
+    obs4: int
+    obs5: int
+    obs6: int
+    obs7: int
+    obs8: int
+    obs9: int
+    obs10: int
+    obs11: int
+
+
+N_KERNEL_FLOATS = KernelConstants._fields.index('max_steps')
+
+
+def _f32(v: float) -> float:
+    """v rounded to float32, as a torch.where of two Python scalars (a
+    float32 tensor) rounds it before `.to(x.dtype)`."""
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def kernel_constants(params: EnvParams, spec: TaskSpec) -> KernelConstants:
+    """The constants of `step` for the task, combined in double precision
+    as the plain version's Python expressions combine them; the reset's
+    pose is the task's default one (`reset` with pose None)."""
+    vp, w, t, rp = params.vehicle, params.world, params.task, params.reward
+    altitude = (spec.start_altitude if spec.start_altitude is not None
+                else t.initial_altitude)
+    s_area = 0.05 * vp.L * 4.0
+    rows = tuple(spec.obs_indices)
+    if len(rows) > C.STATE_SIZE or any(not 0 <= r < C.STATE_SIZE
+                                       for r in rows):
+        raise ValueError(f'env_step kernel: observation rows {rows} outside '
+                         f'the {C.STATE_SIZE} state rows')
+    floats = dict(
+        maxrpm=vp.maxrpm, half_l=vp.L / 2.0,
+        lift_k=0.5 * w.rho * s_area * vp.C_L, thrust_b=vp.B, lb=vp.L * vp.B,
+        drag_d=vp.D, mass=vp.M, ix=vp.Ix, iy=vp.Iy, iz=vp.Iz,
+        iy_iz=vp.Iy - vp.Iz, iz_ix=vp.Iz - vp.Ix, ix_iy=vp.Ix - vp.Iy,
+        jr_ix=vp.Jr / vp.Ix, jr_iy=vp.Jr / vp.Iy, g=w.g, dt=t.dt,
+        landing_vel_x=C.LANDING_VEL_X, landing_vel_y=C.LANDING_VEL_Y,
+        landing_angle=C.LANDING_ANGLE, xyz_pen=rp.xyz_penalty_factor,
+        yaw_pen=rp.yaw_penalty_factor, pr_pen=rp.pitch_roll_penalty_factor,
+        dz_max=rp.dz_max, dz_penalty=_f32(rp.dz_penalty),
+        target_radius=rp.target_radius,
+        target_radius_sq=rp.target_radius ** 2,
+        bonus=_f32(rp.inside_radius_bonus), althold_target=t.althold_target,
+        althold_tol=t.althold_tolerance, takeoff_target=t.takeoff_target,
+        bounds=t.bounds, max_angle=t.max_angle,
+        oob_penalty=t.out_of_bounds_penalty, force=t.initial_random_force,
+        pose_x=spec.start_xy_offset, pose_y=spec.start_xy_offset,
+        pose_z=-altitude, pose_phi=0.0, pose_theta=0.0,
+        dtheta=t.target_dtheta, orbit_radius=t.target_orbit_radius,
+        target_alt=t.target_altitude)
+    ints = dict(
+        max_steps=t.max_steps,
+        blade=params.lift_model == 'blade_element',
+        skip_when_landed=spec.skip_when_landed,
+        perturb_on_reset=spec.perturb_on_reset,
+        integrate_on_reset=spec.integrate_on_reset,
+        negate_obs=spec.negate_obs, n_obs=len(rows),
+        **dict(zip(_OBS_FIELDS, rows + (0,) * (C.STATE_SIZE - len(rows)))))
+    return KernelConstants(**{k: float(v) for k, v in floats.items()},
+                           **{k: int(v) for k, v in ints.items()})
+
+
+def kernel_instantiation(params: EnvParams, spec: TaskSpec, dtype) -> int:
+    """The index of the kernel's instantiation for the task and element
+    type: (type, kind, termination) in `KERNEL_DTYPES`, `KERNEL_KINDS`,
+    `KERNEL_TERMINATIONS` order.  Raises where there is none."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f'env_step kernel: the state must be float32 or '
+                         f'float64, got {dtype}')
+    if spec.kind not in KERNEL_KINDS or \
+            spec.termination not in KERNEL_TERMINATIONS:
+        raise ValueError(f'env_step kernel: no instantiation for task '
+                         f'{spec.name!r} (kind={spec.kind}, '
+                         f'termination={spec.termination})')
+    if params.lift_model not in KERNEL_LIFT_MODELS:
+        raise ValueError(f'env_step kernel: unknown lift model '
+                         f'{params.lift_model!r}')
+    return ((KERNEL_DTYPES.index(dtype) * len(KERNEL_KINDS)
+             + KERNEL_KINDS.index(spec.kind)) * len(KERNEL_TERMINATIONS)
+            + KERNEL_TERMINATIONS.index(spec.termination))
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_constants(params: EnvParams, spec: TaskSpec):
+    """`kernel_constants` as the two ctypes arrays of the launch."""
+    c = kernel_constants(params, spec)
+    return ((ctypes.c_double * N_KERNEL_FLOATS)(*c[:N_KERNEL_FLOATS]),
+            (ctypes.c_int * (len(c) - N_KERNEL_FLOATS))(
+                *c[N_KERNEL_FLOATS:]))
+
+
+def _kernel_library():
+    """The built `ops/csrc/env_step.cu`, with its C signature declared."""
+    from gym_copter_tpu_torch.ops import _build
+
+    lib = _build.load('env_step')
+    fn = lib.gct_env_step
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                       ctypes.c_longlong, ctypes.POINTER(ctypes.c_double),
+                       ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(what: str, t: torch.Tensor, dtype, device, shape):
+    if not isinstance(t, torch.Tensor) or t.device != device:
+        where = t.device if isinstance(t, torch.Tensor) else type(t).__name__
+        raise ValueError(f'env_step kernel: {what} is on {where}, not on '
+                         f'{device} with the state')
+    if t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f'env_step kernel: {what} must be {dtype} of shape '
+                         f'{shape}, got {t.dtype} {tuple(t.shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'env_step kernel: {what} must be contiguous')
+
+
+def step_kernel(state: EnvState, action, base_key, env_ids,
+                params: EnvParams,
+                spec: TaskSpec) -> Tuple[EnvState, TimeStep]:
+    """`step` on the card: the action -> motors map, their sum and the
+    (4, A) mix as torch ops, then one launch of ops/csrc/env_step.cu on the
+    current stream for the transition, the reset of the envs that finish,
+    the select and the observation, into new tensors.  The state's tensors,
+    the base key (int64 (2,)) and the env ids (int32 (B,)) must be
+    contiguous and on the state's card, the state float32 or float64; the
+    action a tensor on that card that broadcasts to (A, B).  The kernel reads
+    the key and the ids from device memory at each launch, so a captured
+    graph draws with the key as it is at its replay.  The nodes before the
+    launch and the launch fall in the region `env.transition`; the reset
+    draw and the select are inside the launch, so their regions hold
+    none."""
+    x = state.dyn.x
+    device, dtype = x.device, x.dtype
+    index = kernel_instantiation(params, spec, dtype)
+    if not x.is_cuda or x.dim() != 2:
+        raise ValueError(f'env_step kernel: the state must be (12, B) on '
+                         f'the card, got {tuple(x.shape)} on {device}')
+    b = x.shape[1]
+    env_ids = env_ids.to(torch.int32)
+    for what, t, dt, shape in (
+            ('x', x, dtype, (C.STATE_SIZE, b)),
+            ('perturb', state.dyn.perturb, dtype, (6, b)),
+            ('status', state.dyn.status, torch.int32, (b,)),
+            ('ticks', state.dyn.ticks, torch.int32, (b,)),
+            ('steps', state.steps, torch.int32, (b,)),
+            ('prev_shaping', state.prev_shaping, dtype, (b,)),
+            ('episode', state.episode, torch.int32, (b,)),
+            ('initial_random_x', state.initial_random_x, dtype, (b,)),
+            ('base_key', base_key, torch.int64, (2,)),
+            ('env_ids', env_ids, torch.int32, (b,))):
+        _check(what, t, dt, device, shape)
+    if not isinstance(action, torch.Tensor) or action.device != device:
+        raise ValueError(f'env_step kernel: the action must be a tensor on '
+                         f'{device} with the state')
+
+    profiling.region('env.transition')
+    motors = motors_from_action(action.to(dtype), spec)
+    # an action of one column for B envs broadcasts as in the plain step
+    motor_sum = torch.broadcast_to(torch.sum(motors, dim=0),
+                                   (b,)).contiguous()
+    mixed = torch.broadcast_to(mix_motors(motors, spec), (4, b)).contiguous()
+    x_out, ts_x = torch.empty_like(x), torch.empty_like(x)
+    status, ts_status = (torch.empty_like(state.dyn.status),
+                         torch.empty_like(state.dyn.status))
+    outs = (x_out, torch.empty_like(state.dyn.perturb), status,
+            torch.empty_like(state.dyn.ticks), torch.empty_like(state.steps),
+            torch.empty_like(state.prev_shaping),
+            torch.empty_like(state.episode),
+            torch.empty_like(state.initial_random_x),
+            torch.empty((spec.obs_size, b), dtype=dtype, device=device),
+            torch.empty((b,), dtype=dtype, device=device),
+            torch.empty((b,), dtype=torch.bool, device=device), ts_status,
+            torch.empty((b,), dtype=torch.bool, device=device), ts_x)
+    tensors = (x, state.dyn.perturb, state.dyn.status, state.dyn.ticks,
+               state.steps, state.prev_shaping, state.episode,
+               state.initial_random_x, mixed, motor_sum, base_key,
+               env_ids) + outs
+    ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    fc, ic = _kernel_constants(params, spec)
+    lib = _kernel_library()
+    n_kinds, n_terms = len(KERNEL_KINDS), len(KERNEL_TERMINATIONS)
+    with torch.cuda.device(device):
+        err = lib.gct_env_step(
+            index // (n_kinds * n_terms), index // n_terms % n_kinds,
+            index % n_terms, ptrs, len(tensors), b, fc, len(fc), ic, len(ic),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        from gym_copter_tpu_torch.ops import _build
+        raise RuntimeError(f'env_step kernel launch failed: '
+                           f'{_build.error_string(lib, err)}')
+    step_kernel.launches += 1
+    profiling.region('env.reset_draw')
+    profiling.region('env.select')
+    profiling.region(None)
+    (x_out, perturb, status, ticks, steps, shaping, episode, irx, obs,
+     reward, done, ts_status, spinning, ts_x) = outs
+    out_state = EnvState(
+        dyn=DynamicsState(x=x_out, status=status, perturb=perturb,
+                          ticks=ticks),
+        prev_shaping=shaping, steps=steps, episode=episode,
+        initial_random_x=irx)
+    return out_state, TimeStep(obs=obs, reward=reward, done=done,
+                               status=ts_status, spinning=spinning, x=ts_x)
+
+
+step_kernel.launches = 0

@@ -12,7 +12,8 @@ every task kind, with and without random resets, Lander3D at 4096 envs,
 and batches that are not a multiple of 128 or of 8, each at every
 lanes-per-env choice (1, 4).  Kernel and plain version must agree bit
 for bit in every field; so must the optimizer's kernel
-(ops/csrc/clip_adam.cu) and its plain version.  The PPO, sharding,
+(ops/csrc/clip_adam.cu) and the env step's (ops/csrc/env_step.cu) and
+their plain versions.  The PPO, sharding,
 checkpoint, profiling, evolution, adaptive and expert tests after them
 hold the graphed paths against their eager, one-rank or CPU counterparts
 on the card.
@@ -32,12 +33,17 @@ from gym_copter_tpu_torch.core.tree import tree_map
 from gym_copter_tpu_torch.learn import ppo
 from torch_cuda_cases import (FIXTURE, FLOOR_SCHEDULE, RECIPE_SCHEDULE,
                               clip_adam_case, clip_adam_mismatches, compare,
+                              env_step_cases, env_step_mismatches,
+                              env_step_setup, env_step_shard_mismatches,
                               fixture_mismatches, fixture_record,
                               fixture_template, ppo_leaf_shapes, reset_state,
                               run_kernel, scenarios, schedule_mismatches,
                               state_diff, state_tensors, train_state_to)
 
 SCENARIOS = scenarios()
+ENV_STEP_CASES = env_step_cases()
+GRAPHED_ENV_STEP_CASES = [c for c in ENV_STEP_CASES
+                          if c[3] in (1, 4099) and c[4] == 'ends']
 _plain = {}
 
 
@@ -99,6 +105,102 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match='lanes must be one of'):
         fr._rollout_cuda(arrays, u, 10, 0, c, lanes=8)
     assert fr.fused_rollout.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ENV_STEP_CASES,
+                         ids=[c[0] for c in ENV_STEP_CASES])
+def test_env_step_kernel_matches_plain(case):
+    """`envs/base.step` on the card (one launch of ops/csrc/env_step.cu
+    per step) against `step_reference` on the card, torch.equal in every
+    field of the state and the TimeStep at every step: every registry id,
+    float32 and float64, 1, 4096 and 4099 envs, under actions that end
+    every episode, end none, or fly into the ground."""
+    from gym_copter_tpu_torch.envs import base
+
+    device = _card()
+    _, name, dtype, b, regime = case
+    launches = base.step_kernel.launches
+    bad, dones, ended, _ = env_step_mismatches(name, dtype, b, regime,
+                                               device, offset=1000)
+    assert bad == []
+    assert base.step_kernel.launches == launches + len(dones)
+    if regime == 'ends':
+        assert ended
+    if regime == 'none':
+        assert sum(dones) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', GRAPHED_ENV_STEP_CASES,
+                         ids=[c[0] for c in GRAPHED_ENV_STEP_CASES])
+def test_graphed_env_step_kernel_matches_plain(case):
+    """The kernel's step captured in a `core/graph.Graph` and replayed
+    under a new action each step, against the plain version eagerly: 1 and
+    4099 envs of every registry id, float32 and float64, every episode
+    ending.  Only the warm-up and the capture count as launches."""
+    from gym_copter_tpu_torch.envs import base
+
+    device = _card()
+    _, name, dtype, b, regime = case
+    launches = base.step_kernel.launches
+    bad, _, ended, _ = env_step_mismatches(name, dtype, b, regime, device,
+                                           graphed=True)
+    assert bad == [] and ended
+    assert base.step_kernel.launches == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('graphed', [False, True], ids=['eager', 'graphed'])
+def test_env_step_kernel_reads_the_key_at_each_launch(graphed):
+    """The base key rewritten in place between two steps (between two
+    replays of a captured step) changes the kernel's reset draws, to the
+    plain version's under the new key."""
+    device = _card()
+    bad, _, ended, changed = env_step_mismatches(
+        'Lander3D-v0', torch.float32, 4099, 'ends', device, graphed=graphed,
+        rekey_at=8)
+    assert bad == [] and ended and changed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64],
+                         ids=['float32', 'float64'])
+def test_env_step_kernel_shard_equals_its_columns(dtype):
+    """A shard's step (its columns, its global env ids) equals the same
+    columns of the whole batch's step, resets and kicks included."""
+    assert env_step_shard_mismatches('Lander3D-v0', dtype, _card()) == []
+
+
+@pytest.mark.cuda
+def test_env_step_kernel_refuses_what_it_does_not_take():
+    """A non-contiguous field, a field or key on another device, an
+    unsupported dtype or task raise before any launch."""
+    from gym_copter_tpu_torch.envs import base
+
+    device = _card()
+    params, spec, key, ids, state, actions = env_step_setup(
+        'Lander3D-v0', torch.float32, 128, 'ends', device)
+    act = actions[0]
+    launches = base.step_kernel.launches
+    strided = state._replace(dyn=state.dyn._replace(
+        x=torch.cat([state.dyn.x, state.dyn.x], dim=1)[:, ::2]))
+    with pytest.raises(ValueError, match='contiguous'):
+        base.step(strided, act, key, ids, params, spec)
+    with pytest.raises(ValueError, match='is on cpu'):
+        base.step(state._replace(steps=state.steps.cpu()), act, key, ids,
+                  params, spec)
+    with pytest.raises(ValueError, match='is on cpu'):
+        base.step(state, act, key.cpu(), ids, params, spec)
+    with pytest.raises(ValueError, match='action must be a tensor'):
+        base.step(state, act.cpu(), key, ids, params, spec)
+    half = tree_map(lambda t: t.half() if t.is_floating_point() else t,
+                    state)
+    with pytest.raises(ValueError, match='float32 or float64'):
+        base.step(half, act, key, ids, params, spec)
+    with pytest.raises(ValueError, match='no instantiation'):
+        base.step(state, act, key, ids, params, spec._replace(kind='nope'))
+    assert base.step_kernel.launches == launches
 
 
 @pytest.mark.cuda

@@ -15,6 +15,13 @@ card) is held against its plain version on the card at Lander3D's and
 Hover3D's leaf shapes (`clip_adam_cases`, `clip_adam_mismatches`); the
 CPU test of `step` builds its inputs with `clip_adam_case` too.
 
+The env step's kernel (ops/csrc/env_step.cu, `envs/base.step` on the
+card) is held against its plain version on the card, `step_reference`,
+for every registry id in float32 and float64 at 1, 4096 and 4099 envs,
+eagerly and replayed in a captured graph, under actions that end every
+episode, end none, or fly into the ground (`env_step_cases`,
+`env_step_mismatches`, `env_step_shard_mismatches`).
+
 The JAX package's orbax checkpoint of the PPO recipe after one update
 (tests/data/jax_orbax_lander3d/, made by tests/make_jax_orbax_fixture.py)
 and its record are read here too (`FIXTURE`, `fixture_record`,
@@ -494,4 +501,171 @@ def fixture_mismatches(ts, optimizer, record):
                 (a.dtype.str, list(a.shape)) != (e['dtype'], e['shape'])
                 or hashlib.sha256(a.tobytes()).hexdigest() != e['sha256']):
             bad.append(path)
+    return bad
+
+
+ENV_STEP_BATCHES = (1, 4096, 4099)
+# 'ends': random motor values and max_steps 6 over 16 steps, so every env
+# finishes, most of them more than once; 'none': equal motor values (no
+# torque) for 8 steps from the start pose, so none finishes; 'ground':
+# no thrust from 0.005-0.6 m, so the envs touch down, level, land or crash
+ENV_STEP_REGIMES = ('ends', 'none', 'ground')
+
+
+def env_step_cases():
+    """(case name, env id, dtype, batch, regime) for every registry id,
+    float32 and float64, every batch of ENV_STEP_BATCHES and every regime
+    of ENV_STEP_REGIMES."""
+    from gym_copter_tpu_torch.envs import tasks
+
+    return [(f'{name} {str(dtype)[6:]} B={b} {regime}', name, dtype, b,
+             regime)
+            for name in tasks.ALL_TASKS
+            for dtype in (torch.float32, torch.float64)
+            for b in ENV_STEP_BATCHES for regime in ENV_STEP_REGIMES]
+
+
+def env_step_setup(name, dtype, b, regime, device, offset=0, seed=7):
+    """(params, spec, base key, env ids, start state, [action per step])
+    of one case; the env ids are offset + arange(b), the actions float32
+    (A, b) tensors drawn on the host from a generator seeded by the
+    case."""
+    import zlib
+
+    from gym_copter_tpu_torch.core import prng
+    from gym_copter_tpu_torch.envs import base, registry
+
+    spec, params = registry.resolve_params(name)
+    a = spec.action_size
+    gen = torch.Generator().manual_seed(zlib.crc32(f'{name} {regime} {b}'
+                                                   .encode()))
+    if regime == 'ends':
+        params = params._replace(task=params.task._replace(max_steps=6))
+        actions = [torch.rand((a, b), generator=gen) * 1.5 - 0.25
+                   for _ in range(16)]
+    elif regime == 'none':
+        actions = []
+        for _ in range(8):
+            v = (torch.rand((1, b), generator=gen) * 0.4 + 0.2).expand(a, b)
+            if spec.action_mode == 'demand3':
+                v = torch.cat([v[:1], torch.zeros((a - 1, b))])
+            actions.append(v.contiguous())
+    elif regime == 'ground':
+        actions = [torch.zeros((a, b)) for _ in range(40)]
+    else:
+        raise ValueError(f'unknown regime {regime!r}')
+    key = prng.PRNGKey(seed, device)
+    ids = offset + torch.arange(b, dtype=torch.int32, device=device)
+    state, _ = base.reset(key, ids, torch.zeros(b, dtype=torch.int32,
+                                                device=device),
+                          params, spec, dtype=dtype)
+    if regime == 'ground':
+        state.dyn.x[4] = -torch.linspace(0.005, 0.6, b, dtype=dtype,
+                                         device=device)
+    return (params, spec, key, ids, state,
+            [act.to(device) for act in actions])
+
+
+def step_fields(out):
+    """(name, tensor) of every field of a step's (EnvState, TimeStep)."""
+    state, ts = out
+    return [('x', state.dyn.x), ('status', state.dyn.status),
+            ('perturb', state.dyn.perturb), ('ticks', state.dyn.ticks),
+            ('prev_shaping', state.prev_shaping), ('steps', state.steps),
+            ('episode', state.episode),
+            ('initial_random_x', state.initial_random_x),
+            ('obs', ts.obs), ('reward', ts.reward), ('done', ts.done),
+            ('ts.status', ts.status), ('spinning', ts.spinning),
+            ('ts.x', ts.x)]
+
+
+def step_differs(got, want):
+    """The fields in which two step outputs differ: dtype, shape or value
+    (torch.equal)."""
+    return [name for (name, a), (_, b) in zip(step_fields(got),
+                                              step_fields(want))
+            if a.dtype != b.dtype or a.shape != b.shape
+            or not torch.equal(a, b)]
+
+
+def env_step_mismatches(name, dtype, b, regime, device, graphed=False,
+                        offset=0, rekey_at=None):
+    """`envs/base.step` on the card (the kernel; with `graphed`, one step
+    captured in a `core/graph.Graph` and replayed) against
+    `step_reference` on the card, from the same start state under the same
+    actions, every output field compared at every step.  With `rekey_at`,
+    the base key is rewritten in place before that step, as
+    `SingleCopterEnv.reset(seed=)` rewrites it between replays.
+
+    Returns ([(step, fields that differ)], [envs done at each step],
+    whether every env finished at least once, whether the rewritten key
+    changed the kernel's draws (None without `rekey_at`))."""
+    from gym_copter_tpu_torch.core import prng
+    from gym_copter_tpu_torch.core.graph import Graph
+    from gym_copter_tpu_torch.envs import base
+
+    params, spec, key, ids, state, actions = env_step_setup(
+        name, dtype, b, regime, device, offset)
+    old_key = key.clone()
+
+    def kernel_step(st, act):
+        return base.step(st, act, key, ids, params, spec)
+
+    step = Graph(kernel_step, warmup=1, name='env_step') if graphed \
+        else kernel_step
+    got_state = want_state = stale_state = state
+    bad, dones, ended = [], [], torch.zeros(b, dtype=torch.bool,
+                                            device=device)
+    changed = None if rekey_at is None else False
+    for t, act in enumerate(actions):
+        if t == rekey_at:
+            key.copy_(prng.PRNGKey(987654321, device))
+        got = step(got_state, act)
+        want = base.step_reference(want_state, act, key, ids, params, spec)
+        diff = step_differs(got, want)
+        if diff:
+            bad.append((t, diff))
+        if rekey_at is not None and t >= rekey_at:
+            stale = base.step_reference(stale_state, act, old_key, ids,
+                                        params, spec)
+            changed = changed or not torch.equal(got[0].dyn.perturb,
+                                                 stale[0].dyn.perturb)
+            stale_state = stale[0]
+        elif rekey_at is not None:
+            stale_state = want[0]
+        done = want[1].done
+        dones.append(int(done.sum()))
+        ended |= done
+        # a graph's outputs are overwritten by its next replay; the state
+        # passed back is copied into its inputs first
+        got_state, want_state = got[0], want[0]
+    return bad, dones, bool(ended.all()), changed
+
+
+def env_step_shard_mismatches(name, dtype, device, b=4096):
+    """The kernel's step of the last b/2 columns with their global env ids
+    (a rank's shard, parallel/sharding.py) against the same columns of the
+    whole batch's step, over the 'ends' regime.  Returns the steps and
+    fields that differ."""
+    from gym_copter_tpu_torch.envs import base
+
+    params, spec, key, ids, state, actions = env_step_setup(
+        name, dtype, b, 'ends', device)
+    lo = b // 2
+
+    def cols(tree):
+        from gym_copter_tpu_torch.core.tree import tree_map
+
+        return tree_map(lambda t: t[..., lo:].contiguous(), tree)
+
+    whole, shard, bad = state, cols(state), []
+    shard_ids = ids[lo:].contiguous()
+    for t, act in enumerate(actions):
+        w = base.step(whole, act, key, ids, params, spec)
+        s = base.step(shard, act[:, lo:].contiguous(), key, shard_ids,
+                      params, spec)
+        diff = step_differs(s, cols(w))
+        if diff:
+            bad.append((t, diff))
+        whole, shard = w[0], s[0]
     return bad
