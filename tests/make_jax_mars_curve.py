@@ -1,6 +1,6 @@
 """Writes the JAX package's float64 run of the Mars learning smoke, which
-chip_smoke.py's [evo] phase and tests/test_torch_mars_f64.py hold the
-port's float64 run to: tests/data/jax_lander3dmars_f64_seed3.json.
+tests/test_torch_cuda.py's Mars smoke and tests/test_torch_mars_f64.py
+hold the port's float64 run to: tests/data/jax_lander3dmars_f64_seed3.json.
 
 The smoke is tests/test_mars.py's (Lander3DMars-v0, 256 envs, 160
 updates, seed 3, rollout 64, hidden 32, gamma 0.995, learning rate 1e-3

@@ -1,7 +1,7 @@
-"""Writes the JAX-written orbax checkpoint the port's tests and
-chip_smoke.py's [ckpt] phase restore: tests/data/jax_orbax_lander3d/.
+"""Writes the JAX-written orbax checkpoint the port's tests restore, on
+the CPU and on the card: tests/data/jax_orbax_lander3d/.
 
-The JAX package on the CPU trains the PPO recipe of chip_smoke.py
+The JAX package on the CPU trains the PPO recipe of tests/test_torch_cuda.py
 (Lander3D-v0, 4096 envs, rollout 128, hidden 128, 4 epochs x 16
 minibatches, target_kl 0.015, the learning rate annealed over a 600-update
 run) for one update from PRNGKey(0), and saves the TrainState with
@@ -39,7 +39,7 @@ from gym_copter_tpu.utils import checkpoint  # noqa: E402
 
 OUT = REPO / 'tests' / 'data' / 'jax_orbax_lander3d'
 ENVS = 4096
-# chip_smoke.py's PPO_CFG and PPO_RUN_UPDATES
+# tests/test_torch_cuda.py's RECIPE and RECIPE_UPDATES
 CFG = dict(rollout_steps=128, hidden=128, epochs=4, learning_rate=3e-4,
            gamma=0.995, entropy_coef=0.01, value_clip=0.0, target_kl=0.015,
            anneal_lr_floor=0.0)

@@ -1,8 +1,8 @@
 """The Mars presets on the port (blade-element lift, the Ingenuity vehicle):
 the mirror of tests/test_mars.py's hover anchor, and one float64 PPO train
 step on Lander3DMars-v0 against the JAX package's.  The Mars learning smoke
-of test_mars.py runs on the card, graphed, in chip_smoke.py's [evo]
-phase."""
+of test_mars.py runs on the card, graphed, in tests/test_torch_cuda.py
+(`test_mars_ppo_smoke_on_the_card`)."""
 
 import jax
 import jax.numpy as jnp

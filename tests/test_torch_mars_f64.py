@@ -1,8 +1,9 @@
 """The Mars learning smoke of tests/test_mars.py in float64: the port's
 `train(..., dtype=torch.float64)` against the JAX package's float64 run of
 the same smoke, recorded by tests/make_jax_mars_curve.py
-(tests/data/jax_lander3dmars_f64_seed3.json).  chip_smoke.py's [evo]
-phase holds the card's whole run to the same record; here the CPU holds
+(tests/data/jax_lander3dmars_f64_seed3.json).  The card test
+`test_mars_ppo_smoke_on_the_card` (tests/test_torch_cuda.py) holds the
+card's whole run to the same record; here the CPU holds
 its first two evaluations (updates 0 and 20 of the 160-update
 schedule)."""
 

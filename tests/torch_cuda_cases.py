@@ -1,6 +1,8 @@
 """The cases on which the port's CUDA kernel is held against its plain
-PyTorch version on the card, shared by tests/test_torch_cuda.py and
-chip_smoke.py.  Imports nothing of JAX.
+PyTorch version on the card, used by tests/test_torch_cuda.py and by
+chip_smoke.py (its main path's `compare`, `step_differs` and
+`clip_adam_case`, its launcher's `launch_hosts`).  Imports nothing of
+JAX.
 
 Each case is every task kind with and without random resets, Lander3D at
 4096 envs, and batches that are not a multiple of 128 (1000 envs) or of
@@ -26,15 +28,23 @@ The JAX package's orbax checkpoint of the PPO recipe after one update
 (tests/data/jax_orbax_lander3d/, made by tests/make_jax_orbax_fixture.py)
 and its record are read here too (`FIXTURE`, `fixture_record`,
 `fixture_template`, `fixture_mismatches`).
+
+The multi-host launcher runs over loopback on the card as separate host
+processes (`launch_hosts`).
 """
 
 import hashlib
 import json
+import os
+import socket
+import subprocess
+import sys
 from pathlib import Path
 
 import torch
 
 MAIN_B = 4096
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def reset_state(params, spec, b, device, pose=None):
@@ -669,3 +679,37 @@ def env_step_shard_mismatches(name, dtype, device, b=4096):
             bad.append((t, diff))
         whole, shard = w[0], s[0]
     return bad
+
+
+def launch_hosts(out, hosts, backend, updates, timeout_s=600):
+    """`python -m gym_copter_tpu_torch.parallel.launch --coordinator` as
+    `hosts` host processes of one rank each over loopback on the card,
+    Lander3D-v0 at the recipe, MAIN_B envs in all, `updates` updates:
+    process 0's report, which it writes to `out`.  A host that fails, or
+    outlives its timeout (the launcher's own, and a minute more here),
+    raises; every host is ended."""
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, '-m', 'gym_copter_tpu_torch.parallel.launch',
+         '--coordinator', f'127.0.0.1:{port}', '--num-processes',
+         str(hosts), '--process-id', str(i), '--nproc-per-node', '1',
+         '--backend', backend, '--device', 'cuda', '--env', 'Lander3D-v0',
+         '--envs-per-host', str(MAIN_B // hosts), '--updates',
+         str(updates), '--timeout', str(timeout_s), '--out', str(out)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(hosts)]
+    try:
+        texts = [p.communicate(timeout=timeout_s + 60)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f'launcher hosts {bad} failed:\n'
+                             + '\n'.join(texts[i][-4000:] for i in bad))
+    return json.loads(Path(out).read_text())
